@@ -1,0 +1,129 @@
+"""Public GLCM API — thin wrappers over the spec → plan → backend layer.
+
+Counterpart of ``repro.core.glcm``:
+
+    from repro_torch.core import glcm
+    P = glcm.glcm(img, levels=32, d=1, theta=45)         # (L, L) on the card
+    F = glcm.glcm_features(imgs, levels=32)              # (B, 4 offsets, 14)
+    F = glcm.glcm_features(imgs, 32, device="cpu")       # same, on the CPU
+
+Both entry points take a numpy array or a tensor, (H, W) or a (B, H, W)
+stack, build a frozen :class:`GLCMSpec` and run it through
+:func:`compile_plan`. ``device=None`` means the current CUDA device, and
+without a card they raise RuntimeError; only ``device="cpu"`` runs on the
+CPU. Results are float32 tensors on the plan's device.
+
+Schemes: "scatter", "onehot", "cuda" (pair-stream vote kernel), "cuda_fused"
+(fused multi-offset kernel) or "auto" — on CUDA "cuda_fused" for several
+pairs and "cuda" for one, on the CPU "onehot".
+"""
+
+from __future__ import annotations
+
+from typing import Literal
+
+import torch
+
+from repro_torch.core.plan import compile_plan
+from repro_torch.core.schemes import PAPER_PAIRS, VOLUME_PAIRS
+from repro_torch.core.spec import GLCMSpec
+
+__all__ = [
+    "glcm",
+    "glcm_features",
+    "GLCMSpec",
+    "compile_plan",
+    "Scheme",
+    "PAPER_PAIRS",
+    "VOLUME_PAIRS",
+]
+
+Scheme = Literal["scatter", "onehot", "cuda", "cuda_fused", "auto"]
+
+
+def _check_ndim(image, ndim: int) -> None:
+    if ndim == 2 and image.ndim not in (2, 3):
+        raise ValueError(
+            f"expected (H, W) image or (B, H, W) stack, got shape {tuple(image.shape)}"
+        )
+    if ndim == 3 and image.ndim not in (3, 4):
+        raise ValueError(
+            f"expected (D, H, W) volume or (B, D, H, W) stack, "
+            f"got shape {tuple(image.shape)}"
+        )
+
+
+def glcm(
+    image,
+    levels: int,
+    d: int = 1,
+    theta: int = 0,
+    *,
+    scheme: Scheme = "auto",
+    quantize: str | None = None,
+    symmetric: bool = False,
+    normalize: bool = False,
+    copies: int = 1,
+    num_blocks: int = 4,
+    region: str = "global",
+    region_shape: tuple[int, ...] | int | None = None,
+    region_stride: tuple[int, ...] | int | None = None,
+    ndim: int = 2,
+    accum: str = "auto",
+    device=None,
+) -> torch.Tensor:
+    """Gray-level co-occurrence matrix of image(s) or volume(s), float32.
+
+    (H, W) input → (L, L); (B, H, W) input → (B, L, L). With ``ndim=3`` the
+    input is a (D, H, W) volume (or stack) and ``theta`` names one of the 13
+    unique 3-D directions. ``device=None`` runs on the card.
+    """
+    _check_ndim(image, ndim)
+    spec = GLCMSpec(
+        levels=levels,
+        pairs=((d, theta),),
+        scheme=scheme,
+        quantize=quantize,
+        symmetric=symmetric,
+        normalize=normalize,
+        copies=max(copies, 1),
+        num_blocks=num_blocks,
+        region=region,
+        region_shape=region_shape,
+        region_stride=region_stride,
+        ndim=ndim,
+        accum=accum,
+    )
+    return compile_plan(spec, tuple(image.shape), device=device)(image)[..., 0, :, :]
+
+
+def glcm_features(
+    image,
+    levels: int,
+    pairs: tuple[tuple[int, int], ...] = PAPER_PAIRS,
+    *,
+    scheme: Scheme = "auto",
+    quantize: str | None = "uniform",
+    region: str = "global",
+    region_shape: tuple[int, ...] | int | None = None,
+    region_stride: tuple[int, ...] | int | None = None,
+    select: tuple[str, ...] | None = None,
+    ndim: int = 2,
+    accum: str = "auto",
+    device=None,
+) -> torch.Tensor:
+    """Image(s)/volume(s) → Haralick features over ``pairs`` offsets.
+
+    (H, W) input → (len(pairs), 14); (B, H, W) input → (B, len(pairs), 14).
+    ``select`` names a feature subset (columns follow its order; the O(L³)
+    ``max_correlation_coefficient`` solve is skipped when unselected).
+    ``device=None`` runs on the card.
+    """
+    _check_ndim(image, ndim)
+    spec = GLCMSpec(
+        levels=levels, pairs=tuple(pairs), scheme=scheme, quantize=quantize,
+        region=region, region_shape=region_shape, region_stride=region_stride,
+        ndim=ndim, accum=accum,
+    )
+    features = True if select is None else tuple(select)
+    return compile_plan(spec, tuple(image.shape), features=features, device=device)(image)

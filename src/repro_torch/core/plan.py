@@ -1,0 +1,303 @@
+"""compile_plan — spec + input shape + device → ONE cached plan.
+
+Counterpart of ``repro.core.plan`` for global (whole-image) specs:
+
+    spec  = GLCMSpec(levels=32, pairs=PAPER_PAIRS, scheme="auto")
+    plan  = compile_plan(spec, imgs.shape)          # resolved, cached
+    mats  = plan(imgs)                              # (B, n_pairs, L, L)
+
+``compile_plan`` resolves "auto" against the backend registry for the plan's
+device, validates the spec against the concrete shape, builds the program
+(quantize → backend vote counting → symmetric/normalize → optionally
+Haralick features) and caches the :class:`GLCMPlan` in a bounded LRU keyed
+by ``(spec, shape, features, require, device)``. PyTorch runs eagerly, so a
+plan is a Python callable, not a compiled program; the cache still saves the
+resolution and validation, and the stats fields match the reference's.
+
+Devices: ``device=None`` means the current CUDA device. Only an explicit
+``device="cpu"`` runs on the CPU; asking for CUDA on a machine without a
+card raises RuntimeError rather than carrying on elsewhere. The plan moves
+its input to its device and returns float32 tensors there.
+
+Quantization placement: for ``quantize="uniform"`` on a backend declaring
+``caps.fused_quantize`` (all four built-ins) the plan does not quantize. It
+derives each image's (lo, span) — python floats when ``spec.vrange`` pins
+the range, per-image (B,) reductions otherwise — and hands the RAW stack to
+the backend, which bins values where it consumes them (the fused kernel in
+registers). The provably-identity case (uint8, ``levels=256``, vrange
+(0, 255)) is a plain cast. "equalized" quantizes each image first.
+
+Not in this package yet, and rejected with NotImplementedError naming the
+slice of the port that brings it: ``temporal_window=`` (temporal stream),
+``check="lint"`` (plan-contract analyzer) and non-global regions (region
+slice). There is no autotuner yet, so "auto" never consults a stored
+winner; ``spec.batch_mode`` is accepted and ignored.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+from collections.abc import Callable
+
+import torch
+
+from repro_torch.core import backends as _backends
+from repro_torch.core.haralick import FEATURE_NAMES, haralick_features
+from repro_torch.core.quantize import (
+    is_identity_quantize,
+    quantize_equalized,
+    quantize_uniform,
+    uniform_params,
+)
+from repro_torch.core.spec import GLCMSpec
+
+__all__ = [
+    "GLCMPlan",
+    "compile_plan",
+    "plan_cache_clear",
+    "plan_cache_limit",
+    "plan_cache_stats",
+    "resolve_device",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class GLCMPlan:
+    """A resolved GLCM program for one input shape on one device.
+
+    ``spec`` is resolved (``spec.scheme`` names a registered backend, never
+    "auto"). Calling the plan maps (*spatial) → (n_pairs, L, L) or
+    (B, *spatial) → (B, n_pairs, L, L) float32 on ``device``; with
+    ``features`` the trailing (L, L) becomes the selected Haralick features.
+    """
+
+    spec: GLCMSpec
+    backend: _backends.Backend
+    shape: tuple[int, ...]
+    features: bool | tuple[str, ...]
+    device: torch.device
+    fn: Callable[[torch.Tensor], torch.Tensor]
+    fused_quantize: bool = False   # quantization is binned inside the count
+
+    def __call__(self, img) -> torch.Tensor:
+        return self.fn(img)
+
+
+_DEFAULT_CACHE_LIMIT = 128
+_CACHE: collections.OrderedDict = collections.OrderedDict()
+_LOCK = threading.Lock()
+_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+_LIMIT = [_DEFAULT_CACHE_LIMIT]
+
+
+def plan_cache_clear() -> None:
+    """Drop every cached plan and zero the counters."""
+    with _LOCK:
+        _CACHE.clear()
+        _STATS["hits"] = _STATS["misses"] = _STATS["evictions"] = 0
+
+
+def plan_cache_limit(limit: int | None = None) -> int:
+    """Get (no argument) or set the LRU bound on cached plans (>= 1,
+    default 128). A smaller bound evicts least-recently-used plans now."""
+    with _LOCK:
+        if limit is not None:
+            if limit < 1:
+                raise ValueError(f"plan cache limit must be >= 1, got {limit}")
+            _LIMIT[0] = int(limit)
+            while len(_CACHE) > _LIMIT[0]:
+                _CACHE.popitem(last=False)
+                _STATS["evictions"] += 1
+        return _LIMIT[0]
+
+
+def plan_cache_stats() -> dict:
+    """{'hits', 'misses', 'evictions', 'hit_rate', 'size', 'limit'} of the
+    plan cache (counters monotonic until clear; ``hit_rate`` is
+    hits / (hits + misses), 0.0 before any lookup)."""
+    with _LOCK:
+        lookups = _STATS["hits"] + _STATS["misses"]
+        hit_rate = _STATS["hits"] / lookups if lookups else 0.0
+        return {
+            **_STATS, "hit_rate": hit_rate, "size": len(_CACHE),
+            "limit": _LIMIT[0],
+        }
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → the current CUDA device; raises RuntimeError when CUDA is
+    asked for and no card is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available: repro_torch runs on the card unless "
+                "the caller passes device='cpu'"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; expected 'cuda' or 'cpu'")
+    return dev
+
+
+def _canonical_features(features) -> bool | tuple[str, ...]:
+    """Validate/canonicalize the ``features`` argument (bool or name tuple)."""
+    if isinstance(features, bool):
+        return features
+    names = tuple(features)
+    for name in names:
+        if name not in FEATURE_NAMES:
+            raise ValueError(
+                f"unknown Haralick feature {name!r}; expected names from "
+                f"{FEATURE_NAMES}"
+            )
+    if not names:
+        raise ValueError("features=() selects nothing; pass False instead")
+    return names
+
+
+def _quantizer(spec: GLCMSpec) -> Callable[[torch.Tensor], torch.Tensor] | None:
+    """Per-image quantizer for plans that quantize before counting."""
+    if spec.quantize is None:
+        return None
+    if spec.quantize == "uniform":
+        vmin, vmax = spec.vrange if spec.vrange is not None else (None, None)
+        return lambda im: quantize_uniform(im, spec.levels, vmin=vmin, vmax=vmax)
+    return lambda im: quantize_equalized(im, spec.levels)
+
+
+def _cache_put(key, plan):
+    """Insert ``plan`` under ``key`` (first writer wins), enforce the LRU
+    bound, and return the cached instance."""
+    with _LOCK:
+        plan = _CACHE.setdefault(key, plan)
+        _CACHE.move_to_end(key)
+        _STATS["misses"] += 1
+        while len(_CACHE) > _LIMIT[0]:
+            _CACHE.popitem(last=False)
+            _STATS["evictions"] += 1
+    return plan
+
+
+def compile_plan(
+    spec: GLCMSpec,
+    shape: tuple[int, ...],
+    *,
+    features: bool | tuple[str, ...] = False,
+    require: tuple[str, ...] = (),
+    device=None,
+    check: str | None = None,
+    temporal_window: int | None = None,
+) -> GLCMPlan:
+    """Resolve ``spec`` for input ``shape`` on ``device`` and return the
+    cached GLCMPlan.
+
+    ``shape`` is (H, W) or (B, H, W) for 2-D specs, (D, H, W) or
+    (B, D, H, W) for ``spec.ndim == 3``. ``features=True`` appends the
+    Haralick-14 stage; a tuple of names selects a subset in that order
+    (skipping the eigendecomposition when ``max_correlation_coefficient`` is
+    not asked for). ``require`` names capability fields the backend must
+    declare. ``device=None`` means CUDA (see :func:`resolve_device`).
+    """
+    if temporal_window is not None:
+        raise NotImplementedError(
+            "temporal_window= plans come with the temporal-stream slice of the port"
+        )
+    if check == "lint":
+        raise NotImplementedError(
+            'check="lint" comes with the plan-contract analyzer slice of the port'
+        )
+    if check not in (None, ""):
+        raise ValueError(f"unknown check mode {check!r}; expected 'lint'")
+    if spec.region != "global":
+        raise NotImplementedError(
+            f"region={spec.region!r} specs come with the region slice of the port"
+        )
+    device = resolve_device(device)
+    shape = tuple(int(s) for s in shape)
+    nd = spec.ndim
+    if len(shape) not in (nd, nd + 1):
+        expect = ("(H, W) or (B, H, W)" if nd == 2
+                  else "(D, H, W) or (B, D, H, W)")
+        raise ValueError(
+            f"expected a {expect} shape for an ndim={nd} spec, got {shape}"
+        )
+    require = tuple(require)
+    features = _canonical_features(features)
+    key = (spec, shape, features, require, device)
+    with _LOCK:
+        plan = _CACHE.get(key)
+        if plan is not None:
+            _CACHE.move_to_end(key)
+            _STATS["hits"] += 1
+            return plan
+
+    name = _backends.resolve_scheme(spec, device, require=require)
+    backend = _backends.get_backend(name)
+    if not _backends.supports_ndim(backend, nd):
+        raise ValueError(
+            f"scheme {name!r} lacks required capability 'volumetric' "
+            f"(cannot serve ndim={nd} specs)"
+        )
+    for cap in require:
+        if not getattr(backend.caps, cap):
+            raise ValueError(f"scheme {name!r} lacks required capability {cap!r}")
+    resolved = spec if spec.scheme == name else spec.replace(scheme=name)
+
+    spatial = shape[-nd:]
+    # The leading spatial delta is non-negative by construction; the rest
+    # may be negative (3-D inter-slice directions).
+    for (d, t), off in zip(resolved.pairs, resolved.offsets()):
+        if off[0] >= spatial[0] or any(
+            abs(o) >= s for o, s in zip(off[1:], spatial[1:])
+        ):
+            raise ValueError(
+                f"offset (d={d}, {t}) → {off} exceeds input shape {spatial}"
+            )
+
+    quant = _quantizer(resolved)
+    batched = len(shape) == nd + 1
+    select = None if isinstance(features, bool) else features
+    fused = resolved.quantize == "uniform" and backend.caps.fused_quantize
+    vmin, vmax = resolved.vrange if resolved.vrange is not None else (None, None)
+
+    def tail(mats: torch.Tensor) -> torch.Tensor:
+        if resolved.symmetric:
+            mats = mats + mats.transpose(-1, -2)
+        if resolved.normalize:
+            mats = mats / mats.sum(dim=(-2, -1), keepdim=True).clamp_min(1.0)
+        if features:
+            mats = haralick_features(mats, select=select)
+        return mats
+
+    def run(img) -> torch.Tensor:
+        x = torch.as_tensor(img, device=device)
+        if tuple(x.shape) != shape:
+            raise ValueError(f"plan compiled for shape {shape}, got {tuple(x.shape)}")
+        stack = x if batched else x[None]
+        if fused:
+            if is_identity_quantize(x.dtype, resolved.levels, vmin, vmax):
+                # The input already holds the levels: a cast, no binning.
+                stack = stack.to(torch.int32)
+                qargs = None
+            else:
+                # RAW pixels plus per-image (lo, span); no quantized image.
+                qargs = uniform_params(stack, vmin=vmin, vmax=vmax, batched=True)
+        else:
+            if quant is not None:
+                # Each image of a batch is quantized with its own range.
+                stack = torch.stack([quant(im) for im in stack])
+            stack = stack.to(torch.int32)
+            qargs = None
+        mats = backend.compute(stack, resolved, quant=qargs).to(torch.float32)
+        mats = tail(mats)
+        return mats if batched else mats[0]
+
+    plan = GLCMPlan(
+        spec=resolved, backend=backend, shape=shape, features=features,
+        device=device, fn=run, fused_quantize=fused,
+    )
+    return _cache_put(key, plan)

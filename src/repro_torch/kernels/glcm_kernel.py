@@ -1,0 +1,248 @@
+"""The GLCM voting kernels for Hopper, each beside its plain PyTorch version.
+
+Counterparts of the two TPU kernels on the main path:
+
+``glcm_vote``   ← ``repro/kernels/glcm_kernel.py::glcm_vote_pallas``
+    (B, N) int32 pair streams → (B, L, L) int32 counts
+    (CUDA source: ``csrc/glcm_vote.cu``; plain version: ``glcm_vote_plain``)
+``glcm_fused``  ← ``repro/kernels/glcm_kernel.py::glcm_fused_pallas``
+    (B, H, W) stack, int32 levels or raw f32 + per-image (lo, span)
+    → (B, n_off, L, L) int32 counts in one pass over the image
+    (CUDA source: ``csrc/glcm_fused.cu``; plain version: ``glcm_fused_plain``)
+
+Each wrapper checks its arguments, then dispatches on the device of the
+tensor it was given: on the CPU it computes the plain version; on a CUDA
+tensor it launches the kernel, or raises — it never falls back. Each keeps a
+launch count, a plain int attribute (``glcm_vote.launches``), raised by one
+at each kernel launch and nowhere else.
+
+The kernels are built with nvcc at first use (``kernels.build``) and bound
+with ctypes; the sources say how each is designed and what bounds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.quantize import assert_levels
+from repro_torch.core.schemes import glcm_scatter_batch
+from repro_torch.kernels import build
+
+__all__ = [
+    "glcm_vote",
+    "glcm_vote_plain",
+    "glcm_fused",
+    "glcm_fused_plain",
+    "DEFAULT_CHUNK",
+    "DEFAULT_COPIES",
+    "MAX_OFFSETS",
+]
+
+DEFAULT_CHUNK = 2048   # pair-stream slice a block votes per step
+DEFAULT_COPIES = 4     # R, the paper's copy count
+MAX_OFFSETS = 64       # offsets per fused launch (kMaxOffsets in glcm_fused.cu)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _function(lib_name: str, fn: str, argtypes: list) -> ctypes._CFuncPtr:
+    f = getattr(build.load(lib_name), fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def _check_launch(lib_name: str, code: int) -> None:
+    if code:
+        msg = _function(lib_name, f"{lib_name}_error_string", [ctypes.c_int])
+        msg.restype = ctypes.c_char_p
+        raise RuntimeError(
+            f"{lib_name} kernel launch failed: CUDA error {code} "
+            f"({msg(code).decode()})"
+        )
+
+
+def _check_device(t: torch.Tensor, what: str) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device.type
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: pair-stream voting
+# ---------------------------------------------------------------------------
+
+
+def glcm_vote_plain(assoc: torch.Tensor, ref: torch.Tensor, levels: int) -> torch.Tensor:
+    """Plain version of ``glcm_vote``: (B, N) streams → (B, L, L) int32 by a
+    ``bincount`` over ``b·L² + ref·L + assoc`` of the pairs whose two levels
+    lie in [0, L)."""
+    b = assoc.shape[0]
+    a = assoc.to(torch.int64)
+    r = ref.to(torch.int64)
+    valid = (a >= 0) & (a < levels) & (r >= 0) & (r < levels)
+    base = torch.arange(b, device=a.device)[:, None] * (levels * levels)
+    pos = (base + r * levels + a)[valid]
+    counts = torch.bincount(pos, minlength=b * levels * levels)
+    return counts.reshape(b, levels, levels).to(torch.int32)
+
+
+def glcm_vote(
+    assoc: torch.Tensor,
+    ref: torch.Tensor,
+    *,
+    levels: int,
+    chunk: int = DEFAULT_CHUNK,
+    copies: int = DEFAULT_COPIES,
+) -> torch.Tensor:
+    """Vote (assoc, ref) pair streams into GLCMs (int32).
+
+    Streams are equal-shape integer tensors, (N,) → (L, L) or (B, N) →
+    (B, L, L) in one launch. A value outside [0, L) (-1 is the pad) does not
+    vote. ``chunk`` is the slice a block votes per step and ``copies`` the
+    paper's R, the private sub-histograms per block; neither changes the
+    counts. Values are cast to int32, as the reference kernel casts them.
+    """
+    if assoc.shape != ref.shape or assoc.ndim not in (1, 2):
+        raise ValueError(
+            f"pair streams must be equal 1-D or 2-D, got {tuple(assoc.shape)} vs "
+            f"{tuple(ref.shape)}"
+        )
+    if assoc.device != ref.device:
+        raise ValueError(f"pair streams on different devices: {assoc.device} vs {ref.device}")
+    assert_levels(levels)
+    if copies < 1 or chunk < 1:
+        raise ValueError(f"chunk and copies must be >= 1, got {chunk}, {copies}")
+    if chunk % copies:
+        raise ValueError(f"chunk ({chunk}) must be divisible by copies ({copies})")
+    batched = assoc.ndim == 2
+    a = assoc if batched else assoc[None]
+    r = ref if batched else ref[None]
+    if _check_device(a, "glcm_vote") == "cpu":
+        out = glcm_vote_plain(a, r, levels)
+    else:
+        out = _launch_vote(a, r, levels, chunk, copies)
+    return out if batched else out[0]
+
+
+glcm_vote.launches = 0
+
+
+def _launch_vote(a, r, levels, chunk, copies) -> torch.Tensor:
+    a = a.to(torch.int32).contiguous()
+    r = r.to(torch.int32).contiguous()
+    b, n = a.shape
+    if b > 65535:
+        raise ValueError(f"glcm_vote takes at most 65535 streams per launch, got {b}")
+    out = torch.zeros((b, levels, levels), dtype=torch.int32, device=a.device)
+    fn = _function("glcm_vote", "glcm_vote_launch",
+                   [_P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I, _P])
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        code = fn(a.data_ptr(), r.data_ptr(), out.data_ptr(), b, n, levels, copies,
+                  chunk, stream)
+    _check_launch("glcm_vote", code)
+    glcm_vote.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: fused multi-offset image pass
+# ---------------------------------------------------------------------------
+
+
+def glcm_fused_plain(
+    stack: torch.Tensor,
+    levels: int,
+    offsets: tuple[tuple[int, int], ...],
+    *,
+    quant=None,
+) -> torch.Tensor:
+    """Plain version of ``glcm_fused``: (B, H, W) → (B, n_off, L, L) int32,
+    a masked ``bincount`` over the pair planes of every offset, binned from
+    raw values when ``quant`` is given (the "scatter" scheme)."""
+    return glcm_scatter_batch(stack, levels, tuple(offsets), quant=quant)
+
+
+def glcm_fused(
+    img: torch.Tensor,
+    *,
+    levels: int,
+    offsets: tuple[tuple[int, int], ...],
+    tile_h: int = 8,
+    copies: int = 1,
+    quant=None,
+) -> torch.Tensor:
+    """One pass over image(s) → multi-offset GLCMs (int32).
+
+    ``img`` is (H, W) → (n_off, L, L) or (B, H, W) → (B, n_off, L, L), in
+    one launch. ``offsets`` are (dy, dx) with 0 <= dy <= tile_h and
+    |dx| < W, as the reference kernel requires. Without ``quant`` the values
+    are levels (cast to int32; one outside [0, L) does not vote). With
+    ``quant=(lo, span)`` — python floats or per-image (B,) tensors — the
+    values are raw and each is binned in-register by the affine of
+    ``core.quantize.bin_values``; the quantized image is never written.
+    ``tile_h`` rows make one block's unit of work and ``copies`` is the
+    paper's R; neither changes the counts.
+    """
+    if img.ndim not in (2, 3):
+        raise ValueError(f"expected (H, W) or (B, H, W) image, got {tuple(img.shape)}")
+    assert_levels(levels)
+    offsets = tuple((int(dy), int(dx)) for dy, dx in offsets)
+    if not 1 <= len(offsets) <= MAX_OFFSETS:
+        raise ValueError(f"need 1..{MAX_OFFSETS} offsets, got {len(offsets)}")
+    if tile_h < 1 or copies < 1:
+        raise ValueError(f"tile_h and copies must be >= 1, got {tile_h}, {copies}")
+    h, w = img.shape[-2:]
+    for dy, dx in offsets:
+        if not (0 <= dy <= tile_h):
+            raise ValueError(f"dy={dy} must be in [0, tile_h={tile_h}]")
+        if abs(dx) >= w:
+            raise ValueError(f"|dx|={abs(dx)} must be < width={w}")
+    batched = img.ndim == 3
+    stack = img if batched else img[None]
+    if _check_device(stack, "glcm_fused") == "cpu":
+        out = glcm_fused_plain(stack, levels, offsets, quant=quant)
+    else:
+        out = _launch_fused(stack, levels, offsets, tile_h, copies, quant)
+    return out if batched else out[0]
+
+
+glcm_fused.launches = 0
+
+
+def _quant_block(quant, b: int, device) -> torch.Tensor:
+    """(lo, span) — python floats or per-image (B,) tensors — as the (B, 2)
+    f32 operand the kernel indexes by image."""
+    lo = torch.as_tensor(quant[0], dtype=torch.float32, device=device).reshape(-1).expand(b)
+    span = torch.as_tensor(quant[1], dtype=torch.float32, device=device).reshape(-1).expand(b)
+    return torch.stack([lo, span], dim=1).contiguous()
+
+
+def _launch_fused(stack, levels, offsets, tile_h, copies, quant) -> torch.Tensor:
+    b, h, w = stack.shape
+    if b > 65535:
+        raise ValueError(f"glcm_fused takes at most 65535 images per launch, got {b}")
+    if quant is None:
+        x = stack.to(torch.int32).contiguous()
+        q = None
+    else:
+        x = stack.to(torch.float32).contiguous()
+        q = _quant_block(quant, b, stack.device)
+    n_off = len(offsets)
+    out = torch.zeros((b, n_off, levels, levels), dtype=torch.int32, device=stack.device)
+    dy = (ctypes.c_int * n_off)(*(o[0] for o in offsets))
+    dx = (ctypes.c_int * n_off)(*(o[1] for o in offsets))
+    fn = _function("glcm_fused", "glcm_fused_launch",
+                   [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P])
+    with torch.cuda.device(stack.device):
+        stream = torch.cuda.current_stream(stack.device).cuda_stream
+        code = fn(x.data_ptr(), None if q is None else q.data_ptr(), out.data_ptr(),
+                  b, h, w, levels, copies, tile_h, ctypes.addressof(dy),
+                  ctypes.addressof(dx), n_off, stream)
+    _check_launch("glcm_fused", code)
+    glcm_fused.launches += 1
+    return out

@@ -1,0 +1,102 @@
+"""Public wrappers around the CUDA voting kernels.
+
+Counterpart of ``repro.kernels.ops`` for the two main-path kernels:
+``glcm_cuda`` ↔ ``glcm_pallas`` (pair planes, binning, pair-stream vote) and
+``glcm_cuda_multi`` ↔ ``glcm_pallas_multi`` (fused multi-offset image pass).
+On a CPU tensor the kernels' plain versions compute the counts; on a CUDA
+tensor the kernels do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quantize import bin_values
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.glcm_kernel import (
+    DEFAULT_CHUNK,
+    DEFAULT_COPIES,
+    glcm_fused,
+    glcm_vote,
+)
+
+__all__ = ["glcm_cuda", "glcm_cuda_multi", "default_tile_h", "DEFAULT_CHUNK", "DEFAULT_COPIES"]
+
+
+def _bin_planes(planes, levels: int, quant, nd: int):
+    """Bin each sliced pair plane (never the whole image); per-image (B,)
+    params broadcast over the ``nd`` spatial axes."""
+    lo, span = quant
+    if torch.is_tensor(lo) and lo.ndim:
+        lo = lo.reshape(lo.shape + (1,) * nd)
+        span = span.reshape(span.shape + (1,) * nd)
+    return tuple(bin_values(p, levels, lo, span) for p in planes)
+
+
+def glcm_cuda(
+    img: torch.Tensor,
+    levels: int,
+    d: int = 1,
+    theta: int = 0,
+    *,
+    offset: tuple[int, ...] | None = None,
+    chunk: int = DEFAULT_CHUNK,
+    copies: int = DEFAULT_COPIES,
+    quant=None,
+) -> torch.Tensor:
+    """GLCM of image(s) via the pair-stream voting kernel, int32 counts.
+
+    Pair planes are strided slices of the input (paper Eq. (2)); with
+    ``quant=(lo, span)`` they are binned on their way into the kernel, which
+    never sees the spatial rank: (H, W) → (L, L), (B, H, W) → (B, L, L) in
+    one launch, and with ``offset=(dz, dy, dx)`` volumes the same way.
+    """
+    off = tuple(int(v) for v in offset) if offset is not None else (
+        _ref.glcm_offsets(d, theta)
+    )
+    nd = len(off)
+    if img.ndim not in (nd, nd + 1):
+        raise ValueError(
+            f"expected a {nd}-D input or a batched {nd + 1}-D stack for "
+            f"offset {off}, got shape {tuple(img.shape)}"
+        )
+    assoc, rf = _ref.pair_planes_nd(img, off)
+    if quant is not None:
+        assoc, rf = _bin_planes((assoc, rf), levels, quant, nd)
+    lead = tuple(img.shape[:-nd])
+    return glcm_vote(
+        assoc.to(torch.int32).reshape(lead + (-1,)),
+        rf.to(torch.int32).reshape(lead + (-1,)),
+        levels=levels,
+        chunk=chunk,
+        copies=copies,
+    )
+
+
+def default_tile_h(offsets: tuple[tuple[int, int], ...]) -> int:
+    """max(8, largest dy) rounded up to 8 — the reference's default."""
+    max_dy = max((dy for dy, _ in offsets), default=1)
+    return max(8, -(-max_dy // 8) * 8)
+
+
+def glcm_cuda_multi(
+    img: torch.Tensor,
+    levels: int,
+    pairs: tuple[tuple[int, int], ...],
+    *,
+    tile_h: int | None = None,
+    copies: int = 1,
+    quant=None,
+) -> torch.Tensor:
+    """Multi-offset GLCM in one image pass via the fused kernel, int32.
+
+    ``pairs`` are (d, theta) tuples; (H, W) → (len(pairs), L, L), (B, H, W)
+    → (B, len(pairs), L, L) in one launch. ``tile_h`` defaults to
+    ``default_tile_h`` of the offsets.
+    """
+    offsets = tuple(_ref.glcm_offsets(d, t) for d, t in pairs)
+    if tile_h is None:
+        tile_h = default_tile_h(offsets)
+    return glcm_fused(
+        img, levels=levels, offsets=offsets, tile_h=tile_h, copies=copies, quant=quant
+    )

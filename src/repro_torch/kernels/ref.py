@@ -1,0 +1,125 @@
+"""Offset tables and the plain scatter-add oracle, in PyTorch.
+
+Counterpart of ``repro.kernels.ref``. Conventions (paper Eq. (2), row-major
+addressing ``addr = y*N + x``):
+
+    theta =   0° : (dy, dx) = ( 0, +d)
+    theta =  45° : (dy, dx) = (+d, -d)
+    theta =  90° : (dy, dx) = (+d,  0)
+    theta = 135° : (dy, dx) = (+d, +d)
+
+and the vote position (paper Eq. (3)): ``pos = f_ref * L + f_assoc`` — i.e.
+``P[ref_level, assoc_level] += 1``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "OFFSETS",
+    "DIRECTIONS_3D",
+    "glcm_offsets",
+    "glcm_offsets_3d",
+    "pair_planes_nd",
+    "glcm_reference_nd",
+]
+
+# theta (degrees) -> (dy, dx) per paper Eq. (2)
+OFFSETS: dict[int, tuple[int, int]] = {
+    0: (0, 1),
+    45: (1, -1),
+    90: (1, 0),
+    135: (1, 1),
+}
+
+# The 13 unique 3-D co-occurrence directions, one per {v, -v} pair of the
+# 26-neighborhood. 0..3 are the in-plane thetas (dz = 0) in OFFSETS order;
+# 4..12 are the nine dz = +1 inter-slice offsets.
+DIRECTIONS_3D: tuple[tuple[int, int, int], ...] = (
+    (0, 0, 1),
+    (0, 1, -1),
+    (0, 1, 0),
+    (0, 1, 1),
+    (1, -1, -1),
+    (1, -1, 0),
+    (1, -1, 1),
+    (1, 0, -1),
+    (1, 0, 0),
+    (1, 0, 1),
+    (1, 1, -1),
+    (1, 1, 0),
+    (1, 1, 1),
+)
+
+
+def glcm_offsets(d: int, theta: int) -> tuple[int, int]:
+    """Pixel offset (dy, dx) for distance ``d`` and direction ``theta``."""
+    if d < 1:
+        raise ValueError(f"distance d must be >= 1, got {d}")
+    try:
+        dy, dx = OFFSETS[theta]
+    except KeyError:
+        raise ValueError(f"theta must be one of {sorted(OFFSETS)}, got {theta}") from None
+    return d * dy, d * dx
+
+
+def glcm_offsets_3d(d: int, direction: int) -> tuple[int, int, int]:
+    """Voxel offset (dz, dy, dx) for distance ``d`` and one of the 13 unique
+    3-D directions (``DIRECTIONS_3D`` index; 0..3 are the in-plane thetas)."""
+    if d < 1:
+        raise ValueError(f"distance d must be >= 1, got {d}")
+    if not (0 <= direction < len(DIRECTIONS_3D)):
+        raise ValueError(
+            f"3-D direction must be in [0, {len(DIRECTIONS_3D) - 1}], got {direction}"
+        )
+    dz, dy, dx = DIRECTIONS_3D[direction]
+    return d * dz, d * dy, d * dx
+
+
+def pair_planes_nd(
+    img: torch.Tensor, offset: tuple[int, ...]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Aligned (assoc, ref) views for a per-axis ``offset`` over the trailing
+    ``len(offset)`` axes; any component may be negative and leading batch
+    dims are kept. The results are strided views of ``img``, not copies."""
+    nd = len(offset)
+    if img.ndim < nd:
+        raise ValueError(f"expected (..., {nd} spatial axes), got shape {tuple(img.shape)}")
+    dims = img.shape[-nd:]
+    for delta, size in zip(offset, dims):
+        if abs(delta) >= size:
+            raise ValueError(f"offset {offset} exceeds image shape {tuple(img.shape)}")
+    assoc_ix: list = [Ellipsis]
+    ref_ix: list = [Ellipsis]
+    for delta, size in zip(offset, dims):
+        if delta >= 0:
+            assoc_ix.append(slice(0, size - delta))
+            ref_ix.append(slice(delta, size))
+        else:
+            assoc_ix.append(slice(-delta, size))
+            ref_ix.append(slice(0, size + delta))
+    return img[tuple(assoc_ix)], img[tuple(ref_ix)]
+
+
+def glcm_reference_nd(
+    img: torch.Tensor,
+    levels: int,
+    offset: tuple[int, ...],
+    *,
+    symmetric: bool = False,
+    normalize: bool = False,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """Scheme-1 oracle for one (already quantized) image: scatter-add voting
+    for an explicit (dy, dx) / (dz, dy, dx) offset. Returns (levels, levels)."""
+    assoc, ref = pair_planes_nd(img, offset)
+    pos = (ref.to(torch.int64) * levels + assoc.to(torch.int64)).reshape(-1)
+    flat = torch.zeros(levels * levels, dtype=dtype, device=img.device)
+    flat.index_add_(0, pos, torch.ones(pos.shape, dtype=dtype, device=img.device))
+    glcm = flat.reshape(levels, levels)
+    if symmetric:
+        glcm = glcm + glcm.T
+    if normalize:
+        glcm = glcm / glcm.sum().clamp_min(1)
+    return glcm

@@ -1,0 +1,264 @@
+"""The CUDA kernels' wrappers of repro_torch against the Pallas kernels.
+
+On the CPU a wrapper computes its kernel's plain version; these tests hold
+that version, count for count, against the reference kernels run in
+interpret mode — with -1 padding, levels outside [0, L), dx < 0,
+dy == tile_h, a height that is not a multiple of tile_h, and scalar and
+per-image quantization. The ``cuda`` test holds each kernel against its
+plain version on the card and skips where there is none.
+"""
+
+import shutil
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.quantize import uniform_params
+from repro_torch.kernels import build, ops
+from repro_torch.kernels.glcm_kernel import (
+    glcm_fused,
+    glcm_fused_plain,
+    glcm_vote,
+    glcm_vote_plain,
+)
+
+try:  # the reference needs JAX, which a machine with a card may not have
+    import jax.numpy as jnp
+
+    from repro.kernels import ops as jops
+    from repro.kernels.glcm_kernel import glcm_fused_pallas, glcm_vote_pallas
+except ImportError:
+    jnp = None
+
+PAPER_OFFSETS = ((0, 1), (1, -1), (0, 4), (4, -4))
+
+
+def _need_reference():
+    if jnp is None:
+        pytest.skip("needs JAX to run the reference kernels")
+
+
+def _streams(rng, b, n, levels):
+    """Pair streams with -1 pads and levels outside [0, L) on both sides."""
+    a = rng.integers(-3, levels + 3, size=(b, n)).astype(np.int32)
+    r = rng.integers(-3, levels + 3, size=(b, n)).astype(np.int32)
+    a[:, n // 2: n // 2 + 7] = -1
+    return a, r
+
+
+@pytest.mark.parametrize("levels", [2, 8, 32, 256])
+@pytest.mark.parametrize("b,n", [(1, 2048), (3, 3001)])
+@pytest.mark.parametrize("copies", [1, 4])
+def test_vote_plain_equals_pallas(levels, b, n, copies):
+    _need_reference()
+    rng = np.random.default_rng(levels * 100 + n)
+    a, r = _streams(rng, b, n, levels)
+    want = np.asarray(glcm_vote_pallas(jnp.asarray(a), jnp.asarray(r), levels=levels,
+                                       copies=copies, interpret=True))
+    got = glcm_vote(torch.from_numpy(a), torch.from_numpy(r), levels=levels, copies=copies)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (b, levels, levels)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        glcm_vote_plain(torch.from_numpy(a), torch.from_numpy(r), levels).numpy(), want)
+
+
+def test_vote_unbatched_and_orientation():
+    _need_reference()
+    a = torch.tensor([0, 1, -1, 2, 9, 3], dtype=torch.int32)
+    r = torch.tensor([3, -1, 4, 5, 1, 8], dtype=torch.int32)
+    got = glcm_vote(a, r, levels=8)
+    want = np.zeros((8, 8), np.int32)
+    want[3, 0] = want[5, 2] = 1  # out[ref, assoc]; pairs with a side outside [0, 8) drop
+    np.testing.assert_array_equal(got.numpy(), want)
+    jw = glcm_vote_pallas(jnp.asarray(a.numpy()), jnp.asarray(r.numpy()), levels=8,
+                          interpret=True)
+    np.testing.assert_array_equal(np.asarray(jw), want)
+
+
+def _raw_images(rng, b, h, w, levels):
+    """Raw f32 images, a third of the values exactly on bin edges."""
+    out = []
+    for lo, span in ((0.0, 255.0), (-3.5, 7.25), (10.0, 1e-3))[:b]:
+        x = (lo + rng.random((h, w)) * span).astype(np.float32)
+        edges = np.float32(lo) + rng.integers(0, levels + 1, size=(h, w)).astype(
+            np.float32) * np.float32(span / levels)
+        out.append(np.where(rng.random((h, w)) < 1 / 3, edges, x).astype(np.float32))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("levels", [2, 8, 32, 256])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("offsets,tile_h", [
+    (PAPER_OFFSETS, 8),
+    (((8, 3), (8, -5), (0, -2), (3, 0)), 8),      # dy == tile_h, dx < 0
+    (((1, -1), (2, 2)), 2),                        # small tiles: many row tiles
+])
+def test_fused_plain_equals_pallas_int(levels, b, offsets, tile_h):
+    _need_reference()
+    rng = np.random.default_rng(levels + b)
+    h, w = 67, 61  # H not a multiple of tile_h, W odd
+    img = rng.integers(-2, levels + 2, size=(b, h, w)).astype(np.int32)
+    want = np.asarray(glcm_fused_pallas(jnp.asarray(img), levels=levels, offsets=offsets,
+                                        tile_h=tile_h, interpret=True))
+    got = glcm_fused(torch.from_numpy(img), levels=levels, offsets=offsets, tile_h=tile_h)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (b, len(offsets), levels, levels)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("levels", [2, 8, 32, 256])
+@pytest.mark.parametrize("per_image", [False, True])
+def test_fused_plain_equals_pallas_quant(levels, per_image):
+    _need_reference()
+    rng = np.random.default_rng(levels)
+    img = _raw_images(rng, 3, 67, 61, levels)
+    offsets = PAPER_OFFSETS + ((8, 3),)
+    if per_image:
+        tq = uniform_params(torch.from_numpy(img), batched=True)
+        jquant = (jnp.asarray(tq[0].numpy()), jnp.asarray(tq[1].numpy()))
+    else:
+        tq = jquant = (-3.5, 7.25)
+    want = np.asarray(glcm_fused_pallas(jnp.asarray(img), levels=levels, offsets=offsets,
+                                        tile_h=8, interpret=True, quant=jquant))
+    got = glcm_fused(torch.from_numpy(img), levels=levels, offsets=offsets, tile_h=8, quant=tq)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        glcm_fused_plain(torch.from_numpy(img), levels, offsets, quant=tq).numpy(), want)
+
+
+def test_fused_unbatched():
+    _need_reference()
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 8, size=(20, 13)).astype(np.int32)
+    want = np.asarray(glcm_fused_pallas(jnp.asarray(img), levels=8, offsets=PAPER_OFFSETS,
+                                        tile_h=8, interpret=True))
+    got = glcm_fused(torch.from_numpy(img), levels=8, offsets=PAPER_OFFSETS)
+    assert tuple(got.shape) == (4, 8, 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("levels", [8, 32])
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_ops_equal_reference_ops(levels, batched, quantized):
+    _need_reference()
+    rng = np.random.default_rng(levels)
+    if quantized:
+        img = _raw_images(rng, 3, 45, 39, levels)
+    else:
+        img = rng.integers(0, levels, size=(3, 45, 39)).astype(np.int32)
+    if not batched:
+        img = img[0]
+    if quantized:
+        tquant = uniform_params(torch.from_numpy(img), batched=batched)
+        jquant = tuple(jnp.asarray(np.asarray(v)) for v in tquant)
+    else:
+        tquant = jquant = None
+    pairs = ((1, 0), (1, 45), (4, 0), (4, 45))
+    for d, t in pairs:
+        want = np.asarray(jops.glcm_pallas(jnp.asarray(img), levels, d, t, interpret=True,
+                                           quant=jquant))
+        got = ops.glcm_cuda(torch.from_numpy(img), levels, d, t, quant=tquant)
+        np.testing.assert_array_equal(got.numpy(), want)
+    want = np.asarray(jops.glcm_pallas_multi(jnp.asarray(img), levels, pairs, interpret=True,
+                                             quant=jquant))
+    got = ops.glcm_cuda_multi(torch.from_numpy(img), levels, pairs, quant=tquant)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ops_volume_offset():
+    _need_reference()
+    rng = np.random.default_rng(9)
+    vol = rng.integers(0, 8, size=(2, 6, 9, 7)).astype(np.int32)
+    for off in ((1, -1, 1), (0, 1, -1), (1, 0, 0)):
+        want = np.asarray(jops.glcm_pallas(jnp.asarray(vol), 8, offset=off, interpret=True))
+        got = ops.glcm_cuda(torch.from_numpy(vol), 8, offset=off)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_default_tile_h_matches_reference():
+    for offsets, want in ((PAPER_OFFSETS, 8), (((9, 0),), 16), (((0, 1),), 8)):
+        assert ops.default_tile_h(offsets) == want
+
+
+def test_cpu_tensors_never_count_launches():
+    before = (glcm_vote.launches, glcm_fused.launches)
+    img = torch.zeros((2, 9, 9), dtype=torch.int32)
+    glcm_fused(img, levels=4, offsets=PAPER_OFFSETS)
+    glcm_vote(img.reshape(2, -1), img.reshape(2, -1), levels=4)
+    assert (glcm_vote.launches, glcm_fused.launches) == before
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(offsets=((9, 0),), tile_h=8), "tile_h"),
+    (dict(offsets=((-1, 0),), tile_h=8), "tile_h"),
+    (dict(offsets=((0, 9),), tile_h=8), "width"),
+    (dict(offsets=(), tile_h=8), "offsets"),
+    (dict(offsets=((0, 1),), tile_h=8, levels=1), "levels"),
+])
+def test_fused_rejects_bad_arguments(kwargs, match):
+    kwargs = {"levels": 8, **kwargs}
+    with pytest.raises(ValueError, match=match):
+        glcm_fused(torch.zeros((2, 10, 9), dtype=torch.int32), **kwargs)
+
+
+@pytest.mark.parametrize("a_shape,r_shape,kw,match", [
+    ((3, 10), (3, 11), {}, "equal"),
+    ((2, 2, 2), (2, 2, 2), {}, "equal"),
+    ((10,), (10,), dict(chunk=10, copies=3), "divisible"),
+    ((10,), (10,), dict(levels=300), "levels"),
+])
+def test_vote_rejects_bad_arguments(a_shape, r_shape, kw, match):
+    kw = {"levels": 8, **kw}
+    with pytest.raises(ValueError, match=match):
+        glcm_vote(torch.zeros(a_shape, dtype=torch.int32),
+                  torch.zeros(r_shape, dtype=torch.int32), **kw)
+
+
+def test_build_flags_keep_ieee_arithmetic():
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-prec-div=true" in flags and "-ftz=false" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    assert set(build.KERNELS) == {"glcm_vote", "glcm_fused"}
+    for name in build.KERNELS:
+        path = build.library_path(name)
+        assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
+        assert (build.CSRC / f"{name}.cu").exists()
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    # No compiler on the path and none under CUDA_HOME: a build must raise,
+    # never hand back a substitute (BUILD_DIR moves so no built library is found).
+    monkeypatch.setattr(shutil, "which", lambda _: None)
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR / "test-no-nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(("glcm_vote",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [8, 32, 256])
+def test_kernels_equal_plain_on_card(levels):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(levels)
+    a, r = _streams(rng, 3, 100_003, levels)
+    ta, tr = torch.from_numpy(a).to(dev), torch.from_numpy(r).to(dev)
+    before = glcm_vote.launches
+    for copies in (1, 4):
+        got = glcm_vote(ta, tr, levels=levels, copies=copies)
+        assert torch.equal(got, glcm_vote_plain(ta, tr, levels))
+    assert glcm_vote.launches == before + 2
+
+    img = torch.from_numpy(
+        rng.integers(-2, levels + 2, size=(3, 131, 77)).astype(np.int32)).to(dev)
+    offsets = PAPER_OFFSETS + ((8, 3),)
+    got = glcm_fused(img, levels=levels, offsets=offsets, tile_h=8)
+    assert torch.equal(got, glcm_fused_plain(img, levels, offsets))
+    raw = torch.from_numpy(_raw_images(rng, 3, 131, 77, levels)).to(dev)
+    for quant in (uniform_params(raw, batched=True), (-3.5, 7.25)):
+        got = glcm_fused(raw, levels=levels, offsets=offsets, tile_h=8, quant=quant)
+        assert torch.equal(got, glcm_fused_plain(raw, levels, offsets, quant=quant))
