@@ -11,18 +11,26 @@ Phases, each printing one JSON line:
 3. ``kernel_check``: each kernel against its plain PyTorch version on the
    card, exact equality, at L in {8, 32, 64, 128, 256}, with -1 padding,
    out-of-range levels, a ragged height, dy == tile_h, an odd width and
-   scalar and per-image quantization.
+   scalar and per-image quantization; windows overlapping and tiled, with
+   dx < 0 and dy == rh - 1; volumes with a ragged depth, all 13 directions,
+   d = 2 and dz == slab_d.
 4. ``main_path``: the entry points at the paper's sizes — glcm_features of
    an 8 x 4096 x 4096 float32 stack (4 smooth + 4 random textures) over
-   PAPER_PAIRS at L = 32, and glcm of one 16384 x 16384 smooth texture at
-   L = 32, d = 1, theta = 45 with uniform quantization. Launch counts are
-   set to 0 just before each entry point and read just after it.
+   PAPER_PAIRS at L = 32; glcm of one 16384 x 16384 smooth texture at
+   L = 32, d = 1, theta = 45 with uniform quantization; the texture map
+   (glcm_features of the first 4096² smooth texture in 32 x 32 windows at
+   stride 16, 255 x 255 windows, all 14 features) and glcm of one random
+   4096² texture in 256 x 256 tiles; and the volumes (glcm_features of a
+   smooth and a random 256 x 512 x 512 float32 volume over the 13 3-D
+   directions, and glcm of the smooth one in direction 7). Launch counts
+   are set to 0 just before each entry point and read just after it.
 5. ``checks``: resolved schemes, launch counts, kernel counts equal to the
    plain versions' on the main-path inputs, features against the features of
-   the plain counts computed on the CPU, and the 16384² vote total.
-6. ``timing``: CUDA-event times of each kernel, its plain version and (vote
-   kernel) ``torch.bincount`` at the main-path shapes, the bound of each
-   kernel, and glcm_features images/s end to end.
+   the plain counts computed on the CPU, and the vote totals.
+6. ``timing``: CUDA-event times of each kernel, its plain version and
+   ``torch.bincount`` of the pre-built linearised index (where it fits) at
+   the main-path shapes, the bound of each kernel, glcm_features images/s,
+   windows/s and voxels/s end to end, and the Haralick tail alone.
 
 Then the ``kernels`` line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without a card, or a
@@ -32,6 +40,7 @@ directory holding this script and nothing else of the repo.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,21 +52,36 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.core.glcm import PAPER_PAIRS, glcm, glcm_features  # noqa: E402
+from repro_torch.core.glcm import PAPER_PAIRS, VOLUME_PAIRS, glcm, glcm_features  # noqa: E402
 from repro_torch.core.haralick import haralick_features  # noqa: E402
 from repro_torch.core.plan import compile_plan  # noqa: E402
 from repro_torch.core.quantize import bin_values, uniform_params  # noqa: E402
+from repro_torch.core.schemes import extract_regions  # noqa: E402
 from repro_torch.core.spec import GLCMSpec  # noqa: E402
-from repro_torch.data.images import random_texture, smooth_texture  # noqa: E402
+from repro_torch.data.images import (  # noqa: E402
+    random_texture,
+    random_volume,
+    smooth_texture,
+    smooth_volume,
+)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.glcm_kernel import (  # noqa: E402
     glcm_fused,
     glcm_fused_plain,
+    glcm_volume,
+    glcm_volume_plain,
     glcm_vote,
     glcm_vote_plain,
+    glcm_window,
+    glcm_window_plain,
 )
-from repro_torch.kernels.ops import default_tile_h  # noqa: E402
-from repro_torch.kernels.ref import glcm_offsets, pair_planes_nd  # noqa: E402
+from repro_torch.kernels.ops import default_slab_d, default_tile_h  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    DIRECTIONS_3D,
+    glcm_offsets,
+    glcm_offsets_3d,
+    pair_planes_nd,
+)
 
 # NVIDIA H100 SXM data sheet: device memory rate and the float32 rate outside
 # the tensor cores (the table has no int32 rate; the kernels' integer adds
@@ -68,6 +92,13 @@ SCALAR_OPS_PER_S = 67e12
 LEVELS = 32
 FEATURE_RTOL, FEATURE_ATOL, F14_ATOL = 1e-5, 1e-6, 1e-4
 DEV = torch.device("cuda", 0)
+KERNELS = (glcm_vote, glcm_fused, glcm_window, glcm_volume)
+
+# The texture map (benchmarks/texture_map.py's geometry at the paper's size)
+# and the volumes of the main path.
+WINDOW, WINDOW_STRIDE, TILE = 32, 16, 256
+VOLUME_SHAPE = (256, 512, 512)
+VOLUME_DIRECTION = 7
 
 
 def emit(obj: dict) -> None:
@@ -96,6 +127,23 @@ def require(cond: bool, what: str) -> None:
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launches() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time for the work in ms, and what bounds it: each input
+    read once and each output written once over the memory rate, against the
+    operations over the scalar rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -176,9 +224,69 @@ def phase_kernel_check() -> None:
         got = glcm_fused(traw, levels=levels, offsets=offsets, tile_h=8, quant=scalar)
         require(torch.equal(got, want), f"glcm_fused scalar quant L={levels}")
         cases += 2
+        cases += _check_window(rng, levels) + _check_volume(rng, levels)
     torch.cuda.synchronize()
     emit({"phase": "kernel_check", "cases": cases, "levels": [8, 32, 64, 128, 256],
           "exact": True})
+
+
+def _check_window(rng, levels: int) -> int:
+    """glcm_window against its plain version: overlapping windows with a
+    ragged edge and tiles, dy == rh - 1 and dx < 0, out-of-range levels,
+    scalar and per-image quantization, and an extracted patch grid."""
+    cases = 0
+    offsets = tuple(glcm_offsets(d, t) for d, t in PAPER_PAIRS) + ((15, 3), (0, -11), (7, -5))
+    h, w = 45, 39  # (45 - 16) % 5 and (39 - 12) % 7 are not 0: edge windows drop
+    ints = torch.from_numpy(
+        rng.integers(-2, levels + 2, size=(2, h, w)).astype(np.int32)).to(DEV)
+    raw = torch.from_numpy(np.stack([_edge_values(rng, (h, w), lo, sp, levels)
+                                     for lo, sp in ((0.0, 255.0), (-3.5, 7.25))])).to(DEV)
+    for region, stride in (((16, 12), (5, 7)), ((16, 12), None)):
+        kw = dict(region_shape=region, stride=stride)
+        want = glcm_window_plain(ints, levels, offsets, **kw)
+        for copies in (1, 3):
+            got = glcm_window(ints, levels=levels, offsets=offsets, copies=copies, **kw)
+            require(torch.equal(got, want), f"glcm_window int L={levels} {region}/{stride} "
+                                            f"R={copies}")
+            cases += 1
+        for quant in (uniform_params(raw, batched=True), (-3.5, 7.25)):
+            want = glcm_window_plain(raw, levels, offsets, quant=quant, **kw)
+            got = glcm_window(raw, levels=levels, offsets=offsets, quant=quant, **kw)
+            require(torch.equal(got, want), f"glcm_window quant L={levels} {region}/{stride}")
+            cases += 1
+    patches = extract_regions(ints, (16, 12), (5, 7))
+    got = glcm_window(patches, levels=levels, offsets=offsets)
+    require(torch.equal(got, glcm_window_plain(ints, levels, offsets, region_shape=(16, 12),
+                                               stride=(5, 7))),
+            f"glcm_window patch grid L={levels}")
+    return cases + 1
+
+
+def _check_volume(rng, levels: int) -> int:
+    """glcm_volume against its plain version: a depth that is not a multiple
+    of slab_d, all 13 directions, d = 2, dz == slab_d, out-of-range levels,
+    scalar and per-image quantization."""
+    cases = 0
+    d, h, w = 19, 23, 29
+    ints = torch.from_numpy(
+        rng.integers(-2, levels + 2, size=(2, d, h, w)).astype(np.int32)).to(DEV)
+    raw = torch.from_numpy(np.stack([_edge_values(rng, (d, h, w), lo, sp, levels)
+                                     for lo, sp in ((0.0, 255.0), (-3.5, 7.25))])).to(DEV)
+    extra = tuple(glcm_offsets_3d(2, k) for k in (4, 8, 12)) + ((8, 1, -2), (0, -3, 5))
+    for offsets, slab_d in ((DIRECTIONS_3D, 8), (extra, 8), (DIRECTIONS_3D, 3)):
+        want = glcm_volume_plain(ints, levels, offsets)
+        for copies in (1, 2):
+            got = glcm_volume(ints, levels=levels, offsets=offsets, slab_d=slab_d,
+                              copies=copies)
+            require(torch.equal(got, want), f"glcm_volume int L={levels} slab_d={slab_d} "
+                                            f"R={copies}")
+            cases += 1
+        for quant in (uniform_params(raw, batched=True), (-3.5, 7.25)):
+            want = glcm_volume_plain(raw, levels, offsets, quant=quant)
+            got = glcm_volume(raw, levels=levels, offsets=offsets, slab_d=slab_d, quant=quant)
+            require(torch.equal(got, want), f"glcm_volume quant L={levels} slab_d={slab_d}")
+            cases += 1
+    return cases
 
 
 def make_inputs():
@@ -186,35 +294,52 @@ def make_inputs():
     stack = np.stack([smooth_texture(4096, seed=s) for s in range(4)]
                      + [random_texture(4096, seed=s) for s in range(4)]).astype(np.float32)
     big = smooth_texture(16384, seed=11).astype(np.float32)
+    vol = np.stack([smooth_volume(VOLUME_SHAPE, seed=0),
+                    random_volume(VOLUME_SHAPE, seed=0)]).astype(np.float32)
     stack_t = torch.from_numpy(stack).to(DEV)
     big_t = torch.from_numpy(big).to(DEV)
+    vol_t = torch.from_numpy(vol).to(DEV)
     torch.cuda.synchronize()
     emit({"phase": "inputs", "seconds": time.perf_counter() - t0,
           "stack": list(stack_t.shape), "stack_bytes": stack_t.numel() * 4,
-          "image": list(big_t.shape), "image_bytes": big_t.numel() * 4})
-    return stack_t, big_t
+          "image": list(big_t.shape), "image_bytes": big_t.numel() * 4,
+          "volumes": list(vol_t.shape), "volume_bytes": vol_t.numel() * 4})
+    return stack_t, big_t, vol_t
 
 
-def phase_main_path(stack: torch.Tensor, big: torch.Tensor) -> dict:
+def _drive(out: dict, name: str, fn):
+    """Run one entry point with every launch count set to 0 just before it
+    and read just after it; host seconds to the end of its device work."""
+    reset_launches()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    out[f"{name}_s"] = time.perf_counter() - t0
+    out[f"{name}_launches"] = launches()
+    return result
+
+
+def phase_main_path(stack: torch.Tensor, big: torch.Tensor, vol: torch.Tensor) -> dict:
     out = {}
-    glcm_vote.launches = glcm_fused.launches = 0
-    t0 = time.perf_counter()
-    feats = glcm_features(stack, LEVELS)
-    torch.cuda.synchronize()
-    out["features_s"] = time.perf_counter() - t0
-    out["features_launches"] = {"glcm_fused": glcm_fused.launches,
-                                "glcm_vote": glcm_vote.launches}
-
-    glcm_vote.launches = glcm_fused.launches = 0
-    t0 = time.perf_counter()
-    mat = glcm(big, LEVELS, d=1, theta=45, quantize="uniform")
-    torch.cuda.synchronize()
-    out["glcm_s"] = time.perf_counter() - t0
-    out["glcm_launches"] = {"glcm_fused": glcm_fused.launches,
-                            "glcm_vote": glcm_vote.launches}
+    feats = _drive(out, "features", lambda: glcm_features(stack, LEVELS))
+    mat = _drive(out, "glcm", lambda: glcm(big, LEVELS, d=1, theta=45, quantize="uniform"))
+    # texture-map-4096: one GLCM per 32 x 32 window at stride 16, all 14
+    # features; the peak memory is the feature tail's.
+    torch.cuda.reset_peak_memory_stats(DEV)
+    texture = _drive(out, "texture", lambda: glcm_features(
+        stack[0], LEVELS, region="window", region_shape=WINDOW, region_stride=WINDOW_STRIDE))
+    out["texture_peak_bytes"] = torch.cuda.max_memory_allocated(DEV)
+    tiles = _drive(out, "tiles", lambda: glcm(
+        stack[4], LEVELS, d=1, theta=0, quantize="uniform", region="tiles", region_shape=TILE))
+    # volume-2x256x512x512: all 13 directions, and one direction alone.
+    vfeats = _drive(out, "volume", lambda: glcm_features(vol, LEVELS, VOLUME_PAIRS, ndim=3))
+    vmat = _drive(out, "volume_glcm", lambda: glcm(
+        vol[0], LEVELS, theta=VOLUME_DIRECTION, ndim=3, quantize="uniform"))
     emit({"phase": "main_path", **out,
-          "features_shape": list(feats.shape), "glcm_shape": list(mat.shape)})
-    out["feats"], out["mat"] = feats, mat
+          "features_shape": list(feats.shape), "glcm_shape": list(mat.shape),
+          "texture_shape": list(texture.shape), "tiles_shape": list(tiles.shape),
+          "volume_shape": list(vfeats.shape), "volume_glcm_shape": list(vmat.shape)})
+    out.update(feats=feats, mat=mat, texture=texture, tiles=tiles, vfeats=vfeats, vmat=vmat)
     return out
 
 
@@ -294,19 +419,14 @@ def phase_timing(stack, big, chk) -> dict:
         lambda: torch.bincount(pos, minlength=LEVELS * LEVELS), reps=3)
     del pos
 
-    # Bounds: each input read once, each output written once, over the
-    # memory rate; operations over the scalar rate; the larger wins.
+    # Bounds (see bound()).
     fused_votes = sum(b * (h - dy) * (w - abs(dx)) for dy, dx in offsets)
     fused_bytes = stack.numel() * 4 + b * 2 * 4 + b * len(offsets) * LEVELS**2 * 4
     fused_ops = 5 * stack.numel() + fused_votes  # binning once per pixel, one add per vote
     vote_bytes = 2 * n * 4 + LEVELS**2 * 4
     vote_ops = n
-    t["fused_bound_ms"] = max(fused_bytes / HBM_BYTES_PER_S, fused_ops / SCALAR_OPS_PER_S) * 1e3
-    t["fused_bound_by"] = ("bytes" if fused_bytes / HBM_BYTES_PER_S
-                           >= fused_ops / SCALAR_OPS_PER_S else "operations")
-    t["vote_bound_ms"] = max(vote_bytes / HBM_BYTES_PER_S, vote_ops / SCALAR_OPS_PER_S) * 1e3
-    t["vote_bound_by"] = ("bytes" if vote_bytes / HBM_BYTES_PER_S
-                          >= vote_ops / SCALAR_OPS_PER_S else "operations")
+    t["fused_bound_ms"], t["fused_bound_by"] = bound(fused_bytes, fused_ops)
+    t["vote_bound_ms"], t["vote_bound_by"] = bound(vote_bytes, vote_ops)
 
     # End to end: glcm_features on the resident stack, host clock + sync.
     glcm_features(stack, LEVELS)
@@ -339,6 +459,236 @@ def phase_timing(stack, big, chk) -> dict:
     return t
 
 
+def _features_err(got: torch.Tensor, counts: torch.Tensor, what: str) -> tuple[float, float]:
+    """Hold features from the card to those of ``counts`` computed on the
+    CPU, within PR 11's tolerances; return the largest f1-f13 and f14 gaps."""
+    want = haralick_features(counts.cpu().to(torch.float32)).numpy()
+    got = got.cpu().numpy()
+    require(np.isfinite(got).all() and got.shape == want.shape,
+            f"{what}: features not finite or of shape {got.shape} != {want.shape}")
+    f_err = float(np.abs(got[..., :13] - want[..., :13]).max())
+    f14_err = float(np.abs(got[..., 13] - want[..., 13]).max())
+    require(np.allclose(got[..., :13], want[..., :13], rtol=FEATURE_RTOL, atol=FEATURE_ATOL),
+            f"{what}: features f1-f13 differ (max abs {f_err})")
+    require(np.allclose(got[..., 13], want[..., 13], rtol=0, atol=F14_ATOL),
+            f"{what}: feature f14 differs (max abs {f14_err})")
+    return f_err, f14_err
+
+
+def _only(counts: dict, kernels: tuple[str, ...], what: str) -> None:
+    for name, n in counts.items():
+        require((n > 0) == (name in kernels),
+                f"{what}: {name} launched {n} times; expected launches of {kernels} only")
+
+
+def phase_texture_checks(stack, main) -> dict:
+    img, rnd = stack[0], stack[4]
+    spec = GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform", region="window",
+                    region_shape=WINDOW, region_stride=WINDOW_STRIDE)
+    plan = compile_plan(spec, tuple(img.shape), features=True)
+    require(plan.spec.scheme == "cuda_fused" and plan.backend.caps.region_grid,
+            f"texture map resolved to {plan.spec.scheme}")
+    grid = tuple((n - WINDOW) // WINDOW_STRIDE + 1 for n in img.shape)
+    require(plan.grid == grid, f"texture grid {plan.grid} != {grid}")
+    tspec = GLCMSpec(levels=LEVELS, pairs=((1, 0),), quantize="uniform", region="tiles",
+                     region_shape=TILE)
+    tplan = compile_plan(tspec, tuple(rnd.shape))
+    require(tplan.spec.scheme == "cuda" and not tplan.backend.caps.region_grid,
+            f"tiles resolved to {tplan.spec.scheme}")
+    _only(main["texture_launches"], ("glcm_window",), "texture map")
+    _only(main["tiles_launches"], ("glcm_vote",), "tiles")
+
+    # Window kernel vs plain on the texture map's image and range.
+    offsets = tuple(glcm_offsets(d, t) for d, t in PAPER_PAIRS)
+    quant = uniform_params(img)
+    kw = dict(region_shape=(WINDOW, WINDOW), stride=(WINDOW_STRIDE, WINDOW_STRIDE))
+    counts = glcm_window(img, levels=LEVELS, offsets=offsets, quant=quant, **kw)
+    plain = glcm_window_plain(img, LEVELS, offsets, quant=quant, **kw)
+    window_err = max_abs_err(counts, plain)
+    require(window_err == 0, f"glcm_window differs from plain by {window_err}")
+    require(tuple(counts.shape) == grid + (len(offsets), LEVELS, LEVELS), "window counts shape")
+    require(torch.equal(compile_plan(spec, tuple(img.shape))(img), counts.to(torch.float32)),
+            "texture plan counts != kernel counts")
+    per_window = counts.to(torch.int64).sum(dim=(-2, -1))  # (gh, gw, n_off)
+    expect = torch.tensor([(WINDOW - dy) * (WINDOW - abs(dx)) for dy, dx in offsets],
+                          device=DEV)
+    require(bool((per_window == expect).all()), "window vote totals")
+    del plain, per_window
+    f_err, f14_err = _features_err(main["texture"], counts, "texture map")
+
+    # Tiles: the generic fallback votes each 256² tile's pair stream.
+    lo, span = uniform_params(rnd)
+    tiles = extract_regions(rnd, (TILE, TILE), (TILE, TILE)).reshape(-1, TILE, TILE)
+    assoc, ref = pair_planes_nd(tiles, glcm_offsets(1, 0))
+    a = bin_values(assoc, LEVELS, lo, span).reshape(tiles.shape[0], -1)
+    r = bin_values(ref, LEVELS, lo, span).reshape(tiles.shape[0], -1)
+    tplain = glcm_vote_plain(a, r, LEVELS)
+    require(torch.equal(main["tiles"].reshape(tplain.shape), tplain.to(torch.float32)),
+            "tiles counts != glcm_vote_plain")
+    require(bool((tplain.to(torch.int64).sum(dim=(1, 2)) == TILE * (TILE - 1)).all()),
+            "tile vote totals")
+    out = {"texture_scheme": plan.spec.scheme, "texture_grid": list(plan.grid),
+           "tiles_scheme": tplan.spec.scheme, "tiles_grid": list(tplan.grid),
+           "window_max_abs_err": window_err, "texture_features_max_abs_err_f1_f13": f_err,
+           "texture_features_max_abs_err_f14": f14_err,
+           "texture_windows": grid[0] * grid[1]}
+    emit({"phase": "checks", "path": "texture-map-4096", **out})
+    out.update(offsets=offsets, quant=quant, counts=counts)
+    return out
+
+
+def phase_volume_checks(vol, main) -> dict:
+    spec = GLCMSpec(levels=LEVELS, pairs=VOLUME_PAIRS, quantize="uniform", ndim=3)
+    one = GLCMSpec(levels=LEVELS, pairs=((1, VOLUME_DIRECTION),), quantize="uniform", ndim=3)
+    scheme = compile_plan(spec, tuple(vol.shape), features=True).spec.scheme
+    one_scheme = compile_plan(one, tuple(vol[0].shape)).spec.scheme
+    require(scheme == "cuda_volume" and one_scheme == "cuda_volume",
+            f"volumes resolved to {scheme}, {one_scheme}")
+    _only(main["volume_launches"], ("glcm_volume",), "volume features")
+    _only(main["volume_glcm_launches"], ("glcm_volume",), "volume glcm")
+
+    offsets = DIRECTIONS_3D
+    slab_d = default_slab_d(offsets)
+    quant = uniform_params(vol, batched=True)
+    counts = glcm_volume(vol, levels=LEVELS, offsets=offsets, slab_d=slab_d, quant=quant)
+    plain = glcm_volume_plain(vol, LEVELS, offsets, quant=quant)
+    volume_err = max_abs_err(counts, plain)
+    require(volume_err == 0, f"glcm_volume differs from plain by {volume_err}")
+    require(torch.equal(compile_plan(spec, tuple(vol.shape))(vol), counts.to(torch.float32)),
+            "volume plan counts != kernel counts")
+    b, d, h, w = vol.shape
+    votes = counts.to(torch.int64).sum(dim=(-2, -1))  # (B, 13)
+    expect = torch.tensor([(d - dz) * (h - abs(dy)) * (w - abs(dx)) for dz, dy, dx in offsets],
+                          device=DEV)
+    require(bool((votes == expect).all()), "volume vote totals")
+    f_err, f14_err = _features_err(main["vfeats"], counts, "volume features")
+
+    off7 = glcm_offsets_3d(1, VOLUME_DIRECTION)
+    q0 = uniform_params(vol[0])
+    one_plain = glcm_volume_plain(vol[:1], LEVELS, (off7,), quant=q0)[0, 0]
+    require(torch.equal(main["vmat"], one_plain.to(torch.float32)),
+            "volume glcm() != glcm_volume_plain")
+    require(int(one_plain.to(torch.int64).sum()) == (d - off7[0]) * (h - abs(off7[1]))
+            * (w - abs(off7[2])), "direction-7 vote total")
+    out = {"volume_scheme": scheme, "volume_glcm_scheme": one_scheme,
+           "volume_max_abs_err": volume_err, "volume_features_max_abs_err_f1_f13": f_err,
+           "volume_features_max_abs_err_f14": f14_err,
+           "volume_votes_per_direction": votes[0].tolist()}
+    emit({"phase": "checks", "path": "volume-2x256x512x512", **out})
+    out.update(offsets=offsets, slab_d=slab_d, quant=quant, counts=counts)
+    return out
+
+
+def _host_seconds(fn, reps: int) -> float:
+    """Mean host seconds per call of ``fn``, to the end of its device work,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def phase_texture_timing(stack, chk) -> dict:
+    img, offsets, quant = stack[0], chk["offsets"], chk["quant"]
+    kw = dict(region_shape=(WINDOW, WINDOW), stride=(WINDOW_STRIDE, WINDOW_STRIDE))
+    t = {}
+    t["window_ms"] = cuda_ms(lambda: glcm_window(img, levels=LEVELS, offsets=offsets,
+                                                 quant=quant, **kw), reps=10)
+    t["window_plain_ms"] = cuda_ms(lambda: glcm_window_plain(img, LEVELS, offsets,
+                                                             quant=quant, **kw), reps=3)
+    # torch.bincount of the linearised (window, k, ref, assoc) index, built
+    # outside the timed region.
+    windows = img.unfold(0, WINDOW, WINDOW_STRIDE).unfold(1, WINDOW, WINDOW_STRIDE)
+    levels = bin_values(windows.reshape(-1, WINDOW, WINDOW), LEVELS, *quant).to(torch.int64)
+    n_win, n_off = levels.shape[0], len(offsets)
+    win = torch.arange(n_win, device=DEV)[:, None, None]
+    parts = []
+    for k, off in enumerate(offsets):
+        a, r = pair_planes_nd(levels, off)
+        parts.append(((win * n_off + k) * LEVELS**2 + r * LEVELS + a).reshape(-1))
+    pos = torch.cat(parts)
+    del parts, levels
+    minlength = n_win * n_off * LEVELS**2
+    require(torch.equal(torch.bincount(pos, minlength=minlength).to(torch.int32),
+                        chk["counts"].reshape(-1)), "texture bincount != kernel counts")
+    t["window_library_ms"] = cuda_ms(lambda: torch.bincount(pos, minlength=minlength), reps=3)
+    votes = pos.numel()
+    del pos
+    nbytes = img.numel() * 4 + 2 * 4 + minlength * 4
+    t["window_bound_ms"], t["window_bound_by"] = bound(nbytes, 5 * img.numel() + votes)
+
+    # End to end, and the Haralick tail alone on the same counts.
+    texture = lambda: glcm_features(img, LEVELS, region="window", region_shape=WINDOW,  # noqa: E731
+                                    region_stride=WINDOW_STRIDE)
+    seconds = _host_seconds(texture, reps=3)
+    t["texture_s"] = seconds
+    t["texture_windows_per_s"] = n_win / seconds
+    spec = GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform", region="window",
+                    region_shape=WINDOW, region_stride=WINDOW_STRIDE)
+    counts = compile_plan(spec, tuple(img.shape))(img)
+    t["texture_tail_s"] = _host_seconds(lambda: haralick_features(counts), reps=2)
+    emit({"phase": "timing", "path": "texture-map-4096", **t})
+    return t
+
+
+def _volume_index(vol, offsets, quant) -> torch.Tensor:
+    """The linearised (volume, k, ref, assoc) index of every in-bounds pair,
+    one int64 per pair (about 14 GB at the main path's shape)."""
+    b = vol.shape[0]
+    lo, span = (v.reshape(b, 1, 1, 1) for v in quant)
+    levels = bin_values(vol, LEVELS, lo, span)
+    sizes = [b * math.prod(s - abs(o) for s, o in zip(vol.shape[1:], off)) for off in offsets]
+    pos = torch.empty(sum(sizes), dtype=torch.int64, device=DEV)
+    vidx = torch.arange(b, device=DEV).reshape(b, 1, 1, 1)
+    at = 0
+    for k, (off, n) in enumerate(zip(offsets, sizes)):
+        a, r = pair_planes_nd(levels, off)
+        pos[at:at + n] = ((vidx * len(offsets) + k) * LEVELS**2
+                          + r.to(torch.int64) * LEVELS + a).reshape(-1)
+        at += n
+    return pos
+
+
+def phase_volume_timing(vol, chk) -> dict:
+    offsets, slab_d, quant = chk["offsets"], chk["slab_d"], chk["quant"]
+    b = vol.shape[0]
+    t = {}
+    t["volume_ms"] = cuda_ms(lambda: glcm_volume(vol, levels=LEVELS, offsets=offsets,
+                                                 slab_d=slab_d, quant=quant), reps=5)
+    t["volume_plain_ms"] = cuda_ms(lambda: glcm_volume_plain(vol, LEVELS, offsets, quant=quant),
+                                   reps=2)
+    minlength = b * len(offsets) * LEVELS**2
+    try:
+        pos = _volume_index(vol, offsets, quant)
+    except torch.cuda.OutOfMemoryError as err:
+        t["volume_library_ms"] = None
+        t["volume_library_null_reason"] = f"index does not fit on the card: {err}"
+        votes = int(chk["counts"].to(torch.int64).sum())
+    else:
+        require(torch.equal(torch.bincount(pos, minlength=minlength).to(torch.int32),
+                            chk["counts"].reshape(-1)), "volume bincount != kernel counts")
+        t["volume_library_ms"] = cuda_ms(lambda: torch.bincount(pos, minlength=minlength),
+                                         reps=3)
+        t["volume_index_bytes"] = pos.numel() * 8
+        votes = pos.numel()
+        del pos
+    nbytes = vol.numel() * 4 + b * 2 * 4 + minlength * 4
+    t["volume_bound_ms"], t["volume_bound_by"] = bound(nbytes, 5 * vol.numel() + votes)
+
+    features = lambda: glcm_features(vol, LEVELS, VOLUME_PAIRS, ndim=3)  # noqa: E731
+    seconds = _host_seconds(features, reps=3)
+    t["volume_s"] = seconds
+    t["volume_voxels_per_s"] = vol.numel() / seconds
+    spec = GLCMSpec(levels=LEVELS, pairs=VOLUME_PAIRS, quantize="uniform", ndim=3)
+    counts = compile_plan(spec, tuple(vol.shape))(vol)
+    t["volume_tail_s"] = _host_seconds(lambda: haralick_features(counts), reps=3)
+    emit({"phase": "timing", "path": "volume-2x256x512x512", **t})
+    return t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script needs an NVIDIA card",
@@ -347,23 +697,46 @@ def main() -> int:
     phase_device()
     phase_build()
     phase_kernel_check()
-    stack, big = make_inputs()
-    main_run = phase_main_path(stack, big)
+    stack, big, vol = make_inputs()
+    main_run = phase_main_path(stack, big, vol)
     chk = phase_checks(stack, big, main_run)
+    tchk = phase_texture_checks(stack, main_run)
+    vchk = phase_volume_checks(vol, main_run)
     t = phase_timing(stack, big, chk)
+    t.update(phase_texture_timing(stack, tchk))
+    t.update(phase_volume_timing(vol, vchk))
+    runs = {name: main_run[f"{path}_launches"][name] for path, name in (
+        ("features", "glcm_fused"), ("texture", "glcm_window"))}
+    runs["glcm_vote"] = sum(main_run[f"{p}_launches"]["glcm_vote"] for p in ("glcm", "tiles"))
+    runs["glcm_volume"] = sum(main_run[f"{p}_launches"]["glcm_volume"]
+                              for p in ("volume", "volume_glcm"))
     kernels = [
         {"name": "glcm_vote", "route": "cuda", "source": "src/repro_torch/csrc/glcm_vote.cu",
          "replaces": "src/repro/kernels/glcm_kernel.py:151",
-         "launches": main_run["glcm_launches"]["glcm_vote"],
+         "launches": runs["glcm_vote"],
          "max_abs_err": chk["vote_max_abs_err"], "ms": t["vote_ms"],
          "plain_ms": t["vote_plain_ms"], "bound_ms": t["vote_bound_ms"],
          "bound_by": t["vote_bound_by"], "library_ms": t["vote_library_ms"]},
         {"name": "glcm_fused", "route": "cuda", "source": "src/repro_torch/csrc/glcm_fused.cu",
          "replaces": "src/repro/kernels/glcm_kernel.py:539",
-         "launches": main_run["features_launches"]["glcm_fused"],
+         "launches": runs["glcm_fused"],
          "max_abs_err": chk["fused_max_abs_err"], "ms": t["fused_ms"],
          "plain_ms": t["fused_plain_ms"], "bound_ms": t["fused_bound_ms"],
          "bound_by": t["fused_bound_by"], "library_ms": None},
+        {"name": "glcm_window", "route": "cuda",
+         "source": "src/repro_torch/csrc/glcm_window.cu",
+         "replaces": "src/repro/kernels/glcm_kernel.py:299",
+         "launches": runs["glcm_window"],
+         "max_abs_err": tchk["window_max_abs_err"], "ms": t["window_ms"],
+         "plain_ms": t["window_plain_ms"], "bound_ms": t["window_bound_ms"],
+         "bound_by": t["window_bound_by"], "library_ms": t["window_library_ms"]},
+        {"name": "glcm_volume", "route": "cuda",
+         "source": "src/repro_torch/csrc/glcm_volume.cu",
+         "replaces": "src/repro/kernels/glcm_kernel.py:440",
+         "launches": runs["glcm_volume"],
+         "max_abs_err": vchk["volume_max_abs_err"], "ms": t["volume_ms"],
+         "plain_ms": t["volume_plain_ms"], "bound_ms": t["volume_bound_ms"],
+         "bound_by": t["volume_bound_by"], "library_ms": t["volume_library_ms"]},
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

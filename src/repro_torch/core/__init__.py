@@ -2,13 +2,15 @@
 
 Execution layer (spec → plan → backend), as in ``repro.core``:
   spec      GLCMSpec, the frozen description of one GLCM workload
-  backends  the scheme registry (scatter / onehot / cuda / cuda_fused) — the
-            only place scheme names are dispatched
+  backends  the scheme registry (scatter / onehot / blocked / cuda /
+            cuda_fused / cuda_volume) — the only place scheme names are
+            dispatched
   plan      compile_plan: spec + shape + device → one cached plan
 
 Modules:
   glcm      public API (glcm / glcm_features)
-  schemes   paper Schemes 1–2 in PyTorch (bincount / one-hot matmul)
+  schemes   paper Schemes 1–3 in PyTorch (bincount / one-hot matmul /
+            blocks with a halo) and the region extraction
   haralick  the 14 Haralick texture features
   quantize  gray-level quantization (uniform / equalized)
 

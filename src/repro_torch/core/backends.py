@@ -12,17 +12,29 @@ holds RAW pixels that the backend bins where it consumes them
 back as float32. Quantization ranges, symmetric/normalize and features are
 the plan's job (``core.plan``).
 
+Region specs (tiles, sliding windows) go through :func:`compute_regions`:
+a backend that declares ``caps.region_grid`` serves them natively through
+``region_compute`` → (B, *grid, n_pairs, L, L); any other backend gets the
+extracted patches as a flat batch through ``compute``.
+
 Built-in strategies:
 
-  "scatter"     paper Scheme 1: one masked ``bincount`` (CPU or card)
-  "onehot"      paper Scheme 2: one-hot matmul ``RᵀA`` per copy (CPU)
-  "cuda"        pair-stream CUDA vote kernel (``kernels.glcm_vote``)
-  "cuda_fused"  fused multi-offset CUDA kernel (``kernels.glcm_fused``)
+  "scatter"      paper Scheme 1: one masked ``bincount`` (CPU or card)
+  "onehot"       paper Scheme 2: one-hot matmul ``RᵀA`` per copy (CPU);
+                 native region path ``schemes.glcm_windowed``
+  "blocked"      paper Scheme 3: row blocks / depth slabs with a halo (CPU)
+  "cuda"         pair-stream CUDA vote kernel (``kernels.glcm_vote``)
+  "cuda_fused"   fused multi-offset CUDA kernel (``kernels.glcm_fused``);
+                 native region path through the window kernel
+                 (``kernels.glcm_window``)
+  "cuda_volume"  depth-slab CUDA volume kernel (``kernels.glcm_volume``),
+                 ndim=3 only
 
-"auto" resolves per device: on CUDA ``cuda_fused`` for more than one pair,
-else ``cuda``; on the CPU ``onehot``. The CUDA backends run on a CPU tensor
-too — through their kernels' plain versions — which is how the CPU tests
-reach their plumbing.
+"auto" resolves per device by the reference's TPU rule: on CUDA
+``cuda_volume`` for volumes, else ``cuda_fused`` for more than one pair and
+``cuda`` for one; on the CPU ``onehot``. The CUDA backends run on a CPU
+tensor too — through their kernels' plain versions — which is how the CPU
+tests reach their plumbing.
 """
 
 from __future__ import annotations
@@ -32,7 +44,14 @@ from collections.abc import Callable
 
 import torch
 
-from repro_torch.core.schemes import glcm_multi, glcm_scatter_batch
+from repro_torch.core.quantize import repeat_params
+from repro_torch.core.schemes import (
+    extract_regions,
+    glcm_blocked,
+    glcm_multi,
+    glcm_scatter_batch,
+    glcm_windowed,
+)
 from repro_torch.core.spec import GLCMSpec
 from repro_torch.kernels import ops as kops
 
@@ -40,6 +59,7 @@ __all__ = [
     "Backend",
     "Capabilities",
     "available_backends",
+    "compute_regions",
     "get_backend",
     "register",
     "resolve_scheme",
@@ -54,22 +74,65 @@ class Capabilities:
 
     multi_offset_fused: bool = False  # all offsets in ONE device pass
     batch_grid: bool = False          # the batch is a kernel grid dimension
+    region_grid: bool = False         # native per-region path (texture maps)
     volumetric: bool = False          # serves ndim=3 (D, H, W) volume specs
+    volume_only: bool = False         # serves ONLY ndim=3 specs (implies
+    #                                   volumetric; enforced at register())
     fused_quantize: bool = False      # accepts raw pixels + quant=(lo, span)
 
 
 @dataclasses.dataclass(frozen=True)
 class Backend:
-    """One registered execution strategy."""
+    """One registered execution strategy.
+
+    ``validate(spec, shape)`` (optional) rejects spec/shape combinations the
+    strategy cannot serve (e.g. blocked with a height that does not divide)
+    before any work; for region specs ``shape`` is the per-region batch it
+    will see. ``region_compute(img_batch, spec, quant=None)`` (present iff
+    ``caps.region_grid``) serves non-global specs natively, returning
+    (B, *grid, n_pairs, L, L).
+    """
 
     name: str
     compute: Callable[..., torch.Tensor]
     caps: Capabilities = Capabilities()
+    validate: Callable[[GLCMSpec, tuple[int, ...]], None] | None = None
+    region_compute: Callable[..., torch.Tensor] | None = None
 
 
 def supports_ndim(backend: Backend, ndim: int) -> bool:
     """Whether ``backend`` can serve specs of spatial rank ``ndim``."""
-    return ndim == 2 or backend.caps.volumetric
+    if ndim == 3:
+        return backend.caps.volumetric
+    return not backend.caps.volume_only
+
+
+def compute_regions(
+    backend: Backend, img_batch: torch.Tensor, spec: GLCMSpec, quant=None
+) -> torch.Tensor:
+    """Region-aware dispatch: (B, *spatial) → (B, *grid, n_pairs, L, L).
+
+    "global" specs go straight to ``backend.compute`` (grid = ()). Other
+    specs use the backend's ``region_compute`` when it declares
+    ``caps.region_grid``; otherwise the patch grid is extracted once and fed
+    through ``backend.compute`` as a flat (B·prod(grid), *region_shape)
+    batch, so every backend serves tiles and windows, 2-D and 3-D. Per-image
+    (B,) quantization ranges repeat over each image's windows: every window
+    bins with its image's range.
+    """
+    if spec.region == "global":
+        return backend.compute(img_batch, spec, quant=quant)
+    if backend.caps.region_grid:
+        return backend.region_compute(img_batch, spec, quant=quant)
+    patches = extract_regions(img_batch, spec.region_shape, spec.strides)
+    nd = spec.ndim
+    b = patches.shape[0]
+    grid = tuple(patches.shape[1: 1 + nd])
+    flat = patches.reshape((-1,) + tuple(patches.shape[1 + nd:]))
+    if quant is not None:
+        quant = repeat_params(quant, flat.shape[0])
+    mats = backend.compute(flat, spec, quant=quant)
+    return mats.reshape((b,) + grid + tuple(mats.shape[1:]))
 
 
 _REGISTRY: dict[str, Backend] = {}
@@ -81,6 +144,16 @@ def register(backend: Backend) -> Backend:
         raise ValueError(f"backend {backend.name!r} is already registered")
     if backend.name == "auto":
         raise ValueError('"auto" is reserved for scheme resolution')
+    if backend.caps.region_grid != (backend.region_compute is not None):
+        raise ValueError(
+            f"backend {backend.name!r}: caps.region_grid must match the "
+            "presence of region_compute"
+        )
+    if backend.caps.volume_only and not backend.caps.volumetric:
+        raise ValueError(
+            f"backend {backend.name!r}: caps.volume_only requires "
+            "caps.volumetric"
+        )
     _REGISTRY[backend.name] = backend
     return backend
 
@@ -114,11 +187,11 @@ def resolve_scheme(
     """Resolve ``spec.scheme`` (possibly "auto") to a registered backend name
     for a plan on ``device``.
 
-    "auto" picks, on CUDA, the fused kernel when the spec has more than one
-    pair and the pair-stream kernel otherwise (the reference's TPU rule);
-    on the CPU the one-hot scheme. ``require`` names :class:`Capabilities`
-    fields the backend must declare; "auto" then picks the first capable
-    backend by name.
+    "auto" picks, on CUDA, the depth-slab kernel for ndim=3 specs, the
+    fused kernel when a 2-D spec has more than one pair and the pair-stream
+    kernel otherwise (the reference's TPU rule); on the CPU the one-hot
+    scheme. ``require`` names :class:`Capabilities` fields the backend must
+    declare; "auto" then picks the first capable backend by name.
     """
     if spec.scheme != "auto":
         get_backend(spec.scheme)  # existence check; capability check in plan
@@ -136,17 +209,13 @@ def resolve_scheme(
         )
     if device.type == "cuda":
         if spec.ndim == 3:
-            raise NotImplementedError(
-                'scheme="auto" for ndim=3 volumes on CUDA needs the depth-slab '
-                "volume kernel, which comes with the volume slice of the port; "
-                'name scheme="cuda" or "scatter" meanwhile'
-            )
+            return "cuda_volume"
         return "cuda_fused" if spec.n_pairs > 1 else "cuda"
     return "onehot"
 
 
 # ---------------------------------------------------------------------------
-# The four built-in strategies
+# The six built-in strategies
 # ---------------------------------------------------------------------------
 
 
@@ -176,11 +245,70 @@ def _cuda_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor
     )
 
 
+def _onehot_region_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
+    return glcm_windowed(
+        img, spec.levels, spec.pairs, spec.region_shape, spec.strides,
+        offsets=spec.offsets(), copies=spec.copies, quant=quant,
+    )
+
+
+def _blocked_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
+    if quant is not None:  # caps.fused_quantize is False; the plan never does this
+        raise ValueError("blocked backend does not support fused quantization")
+    return torch.stack(
+        [
+            glcm_blocked(img, spec.levels, offset=off, num_blocks=spec.num_blocks)
+            for off in spec.offsets()
+        ],
+        dim=-3,
+    )
+
+
+def _blocked_validate(spec: GLCMSpec, shape: tuple[int, ...]) -> None:
+    n0 = shape[-spec.ndim]
+    if n0 % spec.num_blocks:
+        raise ValueError(
+            f"image height {n0} not divisible by num_blocks={spec.num_blocks}"
+            if spec.ndim == 2
+            else f"volume depth {n0} not divisible by num_blocks={spec.num_blocks}"
+        )
+    bh = n0 // spec.num_blocks
+    for (d, t), off in zip(spec.pairs, spec.offsets()):
+        if off[0] > bh:
+            raise ValueError(
+                f"halo {off[0]} of offset (d={d}, {t}) exceeds block height {bh}"
+            )
+
+
 def _cuda_fused_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
     return kops.glcm_cuda_multi(
         img, spec.levels, spec.pairs, tile_h=spec.tile_h, copies=spec.copies,
         quant=quant,
     ).to(torch.float32)
+
+
+def _cuda_fused_region_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
+    # The window kernel reads each window of the (B, H, W) stack in place and
+    # bins it with its image's (lo, span): no patch grid is made.
+    return kops.glcm_cuda_windowed(
+        img, spec.levels, spec.pairs, region_shape=spec.region_shape,
+        stride=spec.strides, copies=spec.copies, quant=quant,
+    ).to(torch.float32)
+
+
+def _cuda_volume_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
+    return kops.glcm_cuda_volume(
+        img, spec.levels, spec.pairs, offsets=spec.offsets(), slab_d=spec.slab_d,
+        copies=spec.copies, quant=quant,
+    ).to(torch.float32)
+
+
+def _cuda_volume_validate(spec: GLCMSpec, shape: tuple[int, ...]) -> None:
+    if spec.ndim != 3:
+        raise ValueError(
+            'scheme "cuda_volume" serves only ndim=3 volume specs; use '
+            '"cuda"/"cuda_fused" for 2-D images'
+        )
 
 
 register(
@@ -194,7 +322,19 @@ register(
     Backend(
         name="onehot",
         compute=_onehot_compute,
-        caps=Capabilities(multi_offset_fused=True, volumetric=True, fused_quantize=True),
+        caps=Capabilities(
+            multi_offset_fused=True, region_grid=True, volumetric=True,
+            fused_quantize=True,
+        ),
+        region_compute=_onehot_region_compute,
+    )
+)
+register(
+    Backend(
+        name="blocked",
+        compute=_blocked_compute,
+        caps=Capabilities(volumetric=True),
+        validate=_blocked_validate,
     )
 )
 register(
@@ -208,6 +348,21 @@ register(
     Backend(
         name="cuda_fused",
         compute=_cuda_fused_compute,
-        caps=Capabilities(multi_offset_fused=True, batch_grid=True, fused_quantize=True),
+        caps=Capabilities(
+            multi_offset_fused=True, batch_grid=True, region_grid=True,
+            fused_quantize=True,
+        ),
+        region_compute=_cuda_fused_region_compute,
+    )
+)
+register(
+    Backend(
+        name="cuda_volume",
+        compute=_cuda_volume_compute,
+        caps=Capabilities(
+            multi_offset_fused=True, batch_grid=True, volumetric=True,
+            volume_only=True, fused_quantize=True,
+        ),
+        validate=_cuda_volume_validate,
     )
 )

@@ -7,15 +7,20 @@ Counterpart of ``repro.core.glcm``:
     F = glcm.glcm_features(imgs, levels=32)              # (B, 4 offsets, 14)
     F = glcm.glcm_features(imgs, 32, device="cpu")       # same, on the CPU
 
-Both entry points take a numpy array or a tensor, (H, W) or a (B, H, W)
-stack, build a frozen :class:`GLCMSpec` and run it through
-:func:`compile_plan`. ``device=None`` means the current CUDA device, and
-without a card they raise RuntimeError; only ``device="cpu"`` runs on the
-CPU. Results are float32 tensors on the plan's device.
+Both entry points take a numpy array or a tensor — (H, W) or a (B, H, W)
+stack, or with ``ndim=3`` a (D, H, W) volume or (B, D, H, W) stack — build
+a frozen :class:`GLCMSpec` and run it through :func:`compile_plan`. With
+``region="tiles" | "window"`` they give one result per region (a texture
+map), the region grid between the batch and the pair axes.
+``device=None`` means the current CUDA device, and without a card they
+raise RuntimeError; only ``device="cpu"`` runs on the CPU. Results are
+float32 tensors on the plan's device.
 
-Schemes: "scatter", "onehot", "cuda" (pair-stream vote kernel), "cuda_fused"
-(fused multi-offset kernel) or "auto" — on CUDA "cuda_fused" for several
-pairs and "cuda" for one, on the CPU "onehot".
+Schemes: "scatter", "onehot", "blocked", "cuda" (pair-stream vote kernel),
+"cuda_fused" (fused multi-offset kernel; window kernel for regions),
+"cuda_volume" (depth-slab volume kernel) or "auto" — on CUDA "cuda_volume"
+for volumes, "cuda_fused" for several pairs and "cuda" for one; on the CPU
+"onehot".
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ __all__ = [
     "VOLUME_PAIRS",
 ]
 
-Scheme = Literal["scatter", "onehot", "cuda", "cuda_fused", "auto"]
+Scheme = Literal["scatter", "onehot", "blocked", "cuda", "cuda_fused", "cuda_volume", "auto"]
 
 
 def _check_ndim(image, ndim: int) -> None:
@@ -76,7 +81,8 @@ def glcm(
 
     (H, W) input → (L, L); (B, H, W) input → (B, L, L). With ``ndim=3`` the
     input is a (D, H, W) volume (or stack) and ``theta`` names one of the 13
-    unique 3-D directions. ``device=None`` runs on the card.
+    unique 3-D directions. A region spec inserts the region grid before the
+    matrix: (B, *grid, L, L). ``device=None`` runs on the card.
     """
     _check_ndim(image, ndim)
     spec = GLCMSpec(
@@ -114,7 +120,9 @@ def glcm_features(
 ) -> torch.Tensor:
     """Image(s)/volume(s) → Haralick features over ``pairs`` offsets.
 
-    (H, W) input → (len(pairs), 14); (B, H, W) input → (B, len(pairs), 14).
+    (H, W) input → (len(pairs), 14); (B, H, W) input → (B, len(pairs), 14);
+    a region spec gives (B, *grid, len(pairs), 14), and ``ndim=3`` takes
+    volumes with ``pairs`` over the 13 3-D directions.
     ``select`` names a feature subset (columns follow its order; the O(L³)
     ``max_correlation_coefficient`` solve is skipped when unselected).
     ``device=None`` runs on the card.

@@ -44,6 +44,12 @@ FEATURE_NAMES = (
 
 _EPS = 1e-12
 
+# Matrix elements per eigvalsh call for f14. cuSOLVER's batched symmetric
+# eigensolver refuses a batch as large as a texture map's (260 100 float64
+# 32 x 32 matrices: CUSOLVER_STATUS_INVALID_VALUE from its buffer-size query),
+# so the batch is solved in chunks of at most this many elements (128 MiB).
+EIG_CHUNK_ELEMENTS = 1 << 24
+
 
 def normalize_glcm(glcm: torch.Tensor) -> torch.Tensor:
     """Counts → joint probabilities (sum to 1)."""
@@ -101,6 +107,16 @@ def _features(p: torch.Tensor, select: tuple[int, ...]) -> torch.Tensor:
     f1 = (p**2).sum(dim=both)
     f2 = ((ii - jj) ** 2 * p).sum(dim=both)
     f3 = ((ii * jj * p).sum(dim=both) - mu_x * mu_y) / (sd_x * sd_y).clamp_min(_EPS)
+    # A marginal that sits on one level has no variance, and f3 is 0/0: its
+    # numerator is then cancellation noise (~1e-14) over the 1e-12 guard, a
+    # value of up to ~0.1 that depends on the order of summation (CPU and
+    # card disagree). The pairwise variance ½·Σ_ik (i-k)² p_i p_k is exactly
+    # 0 for such a marginal (every term holds a zero factor), so those
+    # matrices get f3 = 0 — the value of the exact numerator over the guard.
+    d2 = (ii - jj) ** 2
+    spread_x = ((px @ d2) * px).sum(dim=1) > 0
+    spread_y = ((py @ d2) * py).sum(dim=1) > 0
+    f3 = torch.where(spread_x & spread_y, f3, torch.zeros_like(f3))
     mu = (p * ii).sum(dim=both)  # Haralick's μ in f4 (mean of joint over i)
     f4 = ((ii - mu[:, None, None]) ** 2 * p).sum(dim=both)
     f5 = (p / (1.0 + (ii - jj) ** 2)).sum(dim=both)
@@ -131,8 +147,12 @@ def _features(p: torch.Tensor, select: tuple[int, ...]) -> torch.Tensor:
         a_mat = p / torch.sqrt(
             px[:, :, None].clamp_min(_EPS) * py[:, None, :].clamp_min(_EPS)
         )
-        eig = torch.linalg.eigvalsh(a_mat @ a_mat.transpose(-1, -2))  # ascending
-        feats.append(torch.sqrt(eig[:, -2].clamp_min(0.0)))
+        gram = a_mat @ a_mat.transpose(-1, -2)
+        chunk = max(1, EIG_CHUNK_ELEMENTS // (L * L))
+        second = torch.cat(  # second-largest eigenvalue (eigvalsh ascends)
+            [torch.linalg.eigvalsh(g)[:, -2] for g in gram.split(chunk)]
+        )
+        feats.append(torch.sqrt(second.clamp_min(0.0)))
 
     return torch.stack([feats[k] for k in select], dim=-1)
 

@@ -1,10 +1,14 @@
 """compile_plan — spec + input shape + device → ONE cached plan.
 
-Counterpart of ``repro.core.plan`` for global (whole-image) specs:
+Counterpart of ``repro.core.plan``:
 
     spec  = GLCMSpec(levels=32, pairs=PAPER_PAIRS, scheme="auto")
     plan  = compile_plan(spec, imgs.shape)          # resolved, cached
     mats  = plan(imgs)                              # (B, n_pairs, L, L)
+
+Region specs (``region="tiles" | "window"``) give one GLCM per region:
+(B, *grid, n_pairs, L, L), with ``plan.grid`` the region grid, validated
+against the input shape when the plan is compiled.
 
 ``compile_plan`` resolves "auto" against the backend registry for the plan's
 device, validates the spec against the concrete shape, builds the program
@@ -28,16 +32,17 @@ registers). The provably-identity case (uint8, ``levels=256``, vrange
 (0, 255)) is a plain cast. "equalized" quantizes each image first.
 
 Not in this package yet, and rejected with NotImplementedError naming the
-slice of the port that brings it: ``temporal_window=`` (temporal stream),
-``check="lint"`` (plan-contract analyzer) and non-global regions (region
-slice). There is no autotuner yet, so "auto" never consults a stored
-winner; ``spec.batch_mode`` is accepted and ignored.
+slice of the port that brings it: ``temporal_window=`` (temporal stream)
+and ``check="lint"`` (plan-contract analyzer). There is no autotuner yet,
+so "auto" never consults a stored winner; ``spec.batch_mode`` is accepted
+and ignored.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import threading
 from collections.abc import Callable
 
@@ -68,8 +73,9 @@ class GLCMPlan:
     """A resolved GLCM program for one input shape on one device.
 
     ``spec`` is resolved (``spec.scheme`` names a registered backend, never
-    "auto"). Calling the plan maps (*spatial) → (n_pairs, L, L) or
-    (B, *spatial) → (B, n_pairs, L, L) float32 on ``device``; with
+    "auto"). ``grid`` is the region grid: () for "global", else (gh, gw) or
+    (gd, gh, gw). Calling the plan maps (*spatial) → (*grid, n_pairs, L, L)
+    or (B, *spatial) → (B, *grid, n_pairs, L, L) float32 on ``device``; with
     ``features`` the trailing (L, L) becomes the selected Haralick features.
     """
 
@@ -79,6 +85,7 @@ class GLCMPlan:
     features: bool | tuple[str, ...]
     device: torch.device
     fn: Callable[[torch.Tensor], torch.Tensor]
+    grid: tuple[int, ...] = ()
     fused_quantize: bool = False   # quantization is binned inside the count
 
     def __call__(self, img) -> torch.Tensor:
@@ -212,10 +219,6 @@ def compile_plan(
         )
     if check not in (None, ""):
         raise ValueError(f"unknown check mode {check!r}; expected 'lint'")
-    if spec.region != "global":
-        raise NotImplementedError(
-            f"region={spec.region!r} specs come with the region slice of the port"
-        )
     device = resolve_device(device)
     shape = tuple(int(s) for s in shape)
     nd = spec.ndim
@@ -241,6 +244,8 @@ def compile_plan(
         raise ValueError(
             f"scheme {name!r} lacks required capability 'volumetric' "
             f"(cannot serve ndim={nd} specs)"
+            if nd == 3
+            else f"scheme {name!r} serves only ndim=3 volume specs"
         )
     for cap in require:
         if not getattr(backend.caps, cap):
@@ -248,15 +253,28 @@ def compile_plan(
     resolved = spec if spec.scheme == name else spec.replace(scheme=name)
 
     spatial = shape[-nd:]
-    # The leading spatial delta is non-negative by construction; the rest
-    # may be negative (3-D inter-slice directions).
-    for (d, t), off in zip(resolved.pairs, resolved.offsets()):
-        if off[0] >= spatial[0] or any(
-            abs(o) >= s for o, s in zip(off[1:], spatial[1:])
-        ):
-            raise ValueError(
-                f"offset (d={d}, {t}) → {off} exceeds input shape {spatial}"
-            )
+    # Regions are validated against the concrete shape before any work
+    # (tiles must divide the input, windows must fit)...
+    grid = resolved.region_grid(*spatial)
+    if grid:
+        # ...and the backend sees regions, never the whole input, so its own
+        # validation runs on the per-region batch it will serve. Offsets were
+        # checked against the region when the spec was built.
+        n_regions = math.prod(grid) * (shape[0] if len(shape) == nd + 1 else 1)
+        backend_shape: tuple[int, ...] = (n_regions,) + resolved.region_shape
+    else:
+        # The leading spatial delta is non-negative by construction; the
+        # rest may be negative (3-D inter-slice directions).
+        for (d, t), off in zip(resolved.pairs, resolved.offsets()):
+            if off[0] >= spatial[0] or any(
+                abs(o) >= s for o, s in zip(off[1:], spatial[1:])
+            ):
+                raise ValueError(
+                    f"offset (d={d}, {t}) → {off} exceeds input shape {spatial}"
+                )
+        backend_shape = shape
+    if backend.validate is not None:
+        backend.validate(resolved, backend_shape)
 
     quant = _quantizer(resolved)
     batched = len(shape) == nd + 1
@@ -288,16 +306,18 @@ def compile_plan(
                 qargs = uniform_params(stack, vmin=vmin, vmax=vmax, batched=True)
         else:
             if quant is not None:
-                # Each image of a batch is quantized with its own range.
+                # Each image of a batch is quantized with its own range;
+                # regions share their image's range, never one of their own.
                 stack = torch.stack([quant(im) for im in stack])
             stack = stack.to(torch.int32)
             qargs = None
-        mats = backend.compute(stack, resolved, quant=qargs).to(torch.float32)
+        mats = _backends.compute_regions(backend, stack, resolved, quant=qargs)
+        mats = mats.to(torch.float32)
         mats = tail(mats)
         return mats if batched else mats[0]
 
     plan = GLCMPlan(
         spec=resolved, backend=backend, shape=shape, features=features,
-        device=device, fn=run, fused_quantize=fused,
+        device=device, fn=run, grid=grid, fused_quantize=fused,
     )
     return _cache_put(key, plan)

@@ -7,7 +7,9 @@ Counterpart of ``repro.core.quantize``, bit-exact with it:
   kernel (``csrc/glcm_fused.cu``) bins in-register with the same order and
   IEEE division, so fused and unfused plans count the same votes.
 * ``uniform_params`` gives the (lo, span) a fused consumer needs: python
-  floats when the range is pinned, per-image (B,) reductions otherwise.
+  floats when the range is pinned, per-image (B,) reductions otherwise;
+  ``repeat_params`` repeats per-image ranges over each image's regions, so
+  every window of a texture map bins with its image's range.
 * ``quantize_uniform`` short-circuits the provably-identity case (uint8,
   ``levels=256``, range (0, 255)) to a dtype cast.
 * ``quantize_equalized`` is histogram-equalized binning over a 256-bin CDF.
@@ -23,6 +25,7 @@ __all__ = [
     "assert_levels",
     "bin_values",
     "uniform_params",
+    "repeat_params",
     "is_identity_quantize",
 ]
 
@@ -93,6 +96,17 @@ def uniform_params(
         lo = x.amin() if vmin is None else _f32(vmin, x.device)
         hi = x.amax() if vmax is None else _f32(vmax, x.device)
     span = (hi - lo).clamp_min(_TINY)
+    return lo, span
+
+
+def repeat_params(quant, n: int):
+    """Per-image (lo, span) for a flat batch of ``n`` regions, image major:
+    each entry of per-image (B,) tensors repeats over its image's n // B
+    regions; python floats and 0-d tensors, shared by all, pass through."""
+    lo, span = quant
+    if torch.is_tensor(lo) and lo.ndim:
+        reps = n // lo.shape[0]
+        return lo.repeat_interleave(reps), span.repeat_interleave(reps)
     return lo, span
 
 

@@ -1,11 +1,17 @@
-"""The CPU voting schemes, in PyTorch: the backends "scatter" and "onehot".
+"""The CPU voting schemes, in PyTorch: the backends "scatter", "onehot" and
+"blocked".
 
-Counterpart of the 2-D/3-D global part of ``repro.core.schemes``:
+Counterpart of ``repro.core.schemes``:
 
   Scheme 1 (contended atomic voting)  → ``glcm_scatter_batch`` (``bincount``
                                          over the linearized ``ref*L+assoc``)
   Scheme 2 (R-copy privatized voting) → ``glcm_onehot`` / ``glcm_multi``
                                          (one-hot matmul ``RᵀA`` per copy)
+  Scheme 3 (blocks with a halo)       → ``glcm_blocked`` (row blocks or
+                                         depth slabs, -1 sentinel halo)
+  Regions (texture maps)              → ``extract_regions`` and
+                                         ``glcm_windowed`` (one GLCM per
+                                         tile or sliding window)
 
 Inputs are quantized int images, or — with ``quant=(lo, span)`` — raw
 pixels binned on the fly by ``core.quantize.bin_values``, applied to the
@@ -19,13 +25,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quantize import bin_values
+from repro_torch.core.quantize import bin_values, repeat_params
 from repro_torch.kernels.ref import DIRECTIONS_3D, glcm_offsets, pair_planes_nd
 
 __all__ = [
     "glcm_scatter_batch",
     "glcm_onehot",
     "glcm_multi",
+    "glcm_blocked",
+    "extract_regions",
+    "glcm_windowed",
     "PAPER_PAIRS",
     "VOLUME_PAIRS",
 ]
@@ -158,3 +167,153 @@ def glcm_multi(
         ],
         dim=-3,
     )
+
+
+# ---------------------------------------------------------------------------
+# Regions (texture maps)
+# ---------------------------------------------------------------------------
+
+
+def extract_regions(
+    img: torch.Tensor,
+    region_shape: tuple[int, ...],
+    stride: tuple[int, ...],
+) -> torch.Tensor:
+    """The region grid of (..., H, W) images or (..., D, H, W) volumes; the
+    spatial rank is ``len(region_shape)``.
+
+    Returns (..., *grid, *region_shape), e.g. (..., gh, gw, rh, rw). A stride
+    equal to the region shape that divides the input is the non-overlapping
+    tiling, a reshape and permute (no copy); any other stride gives sliding
+    windows, gathered with one index on the trailing spatial axes and
+    shared by every leading dim. Window positions that do not fit are
+    dropped: ``grid = (size - region) // stride + 1`` per axis.
+    """
+    nd = len(region_shape)
+    if len(stride) != nd:
+        raise ValueError(f"stride {stride} rank != region_shape {region_shape}")
+    dims = tuple(img.shape[-nd:])
+    if any(r > s for r, s in zip(region_shape, dims)):
+        raise ValueError(f"region {region_shape} exceeds input shape {dims}")
+    lead = tuple(img.shape[:-nd])
+    nlead = len(lead)
+    if tuple(stride) == tuple(region_shape) and not any(
+        s % r for s, r in zip(dims, region_shape)
+    ):
+        grid = tuple(s // r for s, r in zip(dims, region_shape))
+        inter = sum(((g, r) for g, r in zip(grid, region_shape)), ())
+        # lead + (g0, r0, g1, r1, ...) → lead + (g0, g1, ..., r0, r1, ...)
+        perm = (
+            tuple(range(nlead))
+            + tuple(nlead + 2 * i for i in range(nd))
+            + tuple(nlead + 2 * i + 1 for i in range(nd))
+        )
+        return img.reshape(lead + inter).permute(perm)
+    grid = tuple((s - r) // st + 1 for s, r, st in zip(dims, region_shape, stride))
+    index: list = [Ellipsis]
+    for i in range(nd):
+        ar = (
+            stride[i] * torch.arange(grid[i], device=img.device)[:, None]
+            + torch.arange(region_shape[i], device=img.device)[None, :]
+        )  # (g_i, r_i)
+        shape = [1] * (2 * nd)
+        shape[i] = grid[i]
+        shape[nd + i] = region_shape[i]
+        index.append(ar.reshape(shape))
+    return img[tuple(index)]
+
+
+def glcm_windowed(
+    img: torch.Tensor,
+    levels: int,
+    pairs: tuple[tuple[int, int], ...],
+    region_shape: tuple[int, ...],
+    stride: tuple[int, ...],
+    *,
+    offsets: tuple[tuple[int, ...], ...] | None = None,
+    copies: int = 1,
+    quant=None,
+) -> torch.Tensor:
+    """Per-region GLCMs: one region extraction, then the one-hot matmul
+    ``RᵀA`` per window and copy, with the flat window grid as the batch.
+
+    (H, W) → (gh, gw, n_pairs, L, L); (B, H, W) → (B, gh, gw, n_pairs, L, L);
+    volumes gain the (gd, gh, gw) grid of (rd, rh, rw) sub-volumes
+    (``offsets`` carries the 3-D directions). Pairs are counted strictly
+    within each region. With ``quant=(lo, span)`` the patches are raw and
+    every window bins with its image's range (per-image (B,) tensors repeat
+    over the image's windows). float32 counts.
+    """
+    if copies < 1:
+        raise ValueError(f"copies (R) must be >= 1, got {copies}")
+    if offsets is None:
+        offsets = tuple(glcm_offsets(d, t) for d, t in pairs)
+    nd = len(region_shape)
+    patches = extract_regions(img, region_shape, stride)
+    lead = tuple(patches.shape[:-nd])
+    flat = patches.reshape((-1,) + tuple(patches.shape[-nd:]))
+    if quant is not None:
+        quant = repeat_params(quant, flat.shape[0])
+    else:
+        flat = flat.to(torch.int32)
+    mats = glcm_multi(flat, levels, offsets=offsets, copies=copies, quant=quant)
+    return mats.reshape(lead + (len(offsets), levels, levels))
+
+
+# ---------------------------------------------------------------------------
+# Scheme 3 — blocks along the leading spatial axis, with a halo
+# ---------------------------------------------------------------------------
+
+
+def glcm_blocked(
+    img: torch.Tensor,
+    levels: int,
+    d: int = 1,
+    theta: int = 0,
+    *,
+    offset: tuple[int, ...] | None = None,
+    num_blocks: int = 4,
+) -> torch.Tensor:
+    """Scheme 3 (paper Eq. (7)–(9)) on one device: the input is split into
+    ``num_blocks`` blocks along its leading spatial axis (row blocks for
+    images, depth slabs for volumes), each extended by the halo — the
+    offset's leading delta ``d0`` — so that boundary pairs count exactly
+    once. The trailing edge is padded with ``d0`` slices of -1, which never
+    vote. Blocks are voted one after another (the reference's ``lax.scan``)
+    by a one-hot matmul over the batch.
+
+    ``img`` is (*spatial) → (L, L) or (B, *spatial) → (B, L, L), float32
+    counts. The leading extent must divide into ``num_blocks`` blocks of at
+    least ``d0`` slices.
+    """
+    if offset is None:
+        off = glcm_offsets(d, theta)
+    else:
+        off = tuple(int(v) for v in offset)
+        if len(off) not in (2, 3):
+            raise ValueError(f"offset must be (dy, dx) or (dz, dy, dx), got {offset!r}")
+    nd = len(off)
+    stack, batched = _as_stack(img, nd)
+    stack = stack.to(torch.int32)  # signed, so the -1 halo survives uint8 input
+    b, n0 = stack.shape[0], stack.shape[1]
+    d0 = off[0]
+    if d0 < 0:
+        raise ValueError(f"blocked scheme needs a non-negative leading delta, got {off}")
+    if n0 % num_blocks:
+        raise ValueError(f"leading extent {n0} not divisible by num_blocks={num_blocks}")
+    bh = n0 // num_blocks
+    if d0 > bh:
+        raise ValueError(f"halo {d0} exceeds block extent {bh}")
+    # F.pad lists the last axis first: pad only the trailing end of axis 1.
+    padded = torch.nn.functional.pad(stack, (0, 0) * (nd - 1) + (0, d0), value=-1)
+    glcm = torch.zeros((b, levels, levels), dtype=torch.float32, device=stack.device)
+    for i in range(num_blocks):
+        block = padded[:, i * bh: (i + 1) * bh + d0]
+        assoc, ref = pair_planes_nd(block, off)
+        a = assoc.reshape(b, -1).to(torch.int64)
+        r = ref.reshape(b, -1).to(torch.int64)
+        valid = (a >= 0) & (r >= 0)
+        A = _onehot(torch.where(valid, a, -1), levels)
+        R = _onehot(torch.where(valid, r, -1), levels)
+        glcm += torch.einsum("bpi,bpj->bij", R, A)
+    return glcm if batched else glcm[0]

@@ -88,7 +88,8 @@ class GLCMSpec:
                 (d, θ) with θ ∈ {0, 45, 90, 135}; for ``ndim=3`` each is
                 (d, direction) with direction indexing the 13 unique 3-D
                 directions of ``kernels.ref.DIRECTIONS_3D``.
-    scheme      backend name ("scatter" | "onehot" | "cuda" | "cuda_fused")
+    scheme      backend name ("scatter" | "onehot" | "blocked" | "cuda" |
+                "cuda_fused" | "cuda_volume")
                 or "auto" (resolved at plan time from the plan's device and
                 the registry's capabilities — see ``core.backends``).
     quantize    pre-quantization mode (see QUANTIZE_MODES), applied per image.
@@ -124,8 +125,8 @@ class GLCMSpec:
                 default: max(8, largest dy) rounded up to 8).
     chunk       pair-stream chunk length override (None = kernel default
                 2048). Must be a multiple of ``copies``.
-    slab_d      volume-kernel depth-slab override (kept for parity with the
-                reference spec; no kernel of this package reads it yet).
+    slab_d      volume-kernel depth-slab override (None = max(8, largest dz)
+                rounded up to 8); splits the work, never changes the counts.
     batch_mode  batch-axis topology of the reference's TPU kernels (see
                 BATCH_MODES). Accepted and validated for parity; on CUDA the
                 batch is always a grid dimension, so no backend reads it.

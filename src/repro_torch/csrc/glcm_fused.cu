@@ -10,9 +10,10 @@
 // Input: pre-quantized int32 levels, or raw float32 values plus a (B, 2)
 // float32 (lo, span) per image. Raw values are binned in registers with the
 // f32 op order of repro_torch.core.quantize.bin_values — subtract, divide,
-// multiply, floor, clip, int — using the _rn intrinsics, so the division is
-// IEEE and nothing is contracted into an FMA: bin edges land exactly where
-// the reference puts them. The quantized image is never written.
+// multiply, floor, clip, int — using the _rn intrinsics (glcm::bin_level in
+// glcm_common.cuh), so the division is IEEE and nothing is contracted into
+// an FMA: bin edges land exactly where the reference puts them. The
+// quantized image is never written.
 //
 // Design (the paper's Scheme 2): the grid is (row-tile blocks, B). A block
 // walks row tiles of tile_h rows of its image; a thread loads its pixel once,
@@ -36,6 +37,8 @@
 
 #include <cuda_runtime.h>
 
+#include "glcm_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -46,19 +49,6 @@ struct Offsets {
   int dy[kMaxOffsets];
   int dx[kMaxOffsets];
 };
-
-__device__ __forceinline__ int bin_level(float v, float lo, float span, int levels) {
-  float q = floorf(__fmul_rn(__fdiv_rn(__fsub_rn(v, lo), span), static_cast<float>(levels)));
-  q = fminf(fmaxf(q, 0.0f), static_cast<float>(levels - 1));
-  return static_cast<int>(q);
-}
-
-template <bool kQuant>
-__device__ __forceinline__ int level_at(const void* img, long long i, float lo, float span,
-                                        int levels) {
-  if (kQuant) return bin_level(__ldg(static_cast<const float*>(img) + i), lo, span, levels);
-  return __ldg(static_cast<const int*>(img) + i);
-}
 
 template <bool kQuant, bool kShared>
 __global__ void __launch_bounds__(kThreads)
@@ -89,16 +79,16 @@ fused_kernel(const void* __restrict__ img, const float* __restrict__ quant,
     const int y_end = min((t + 1) * tile_h, height);
     for (int y = t * tile_h; y < y_end; ++y) {
       for (int x = threadIdx.x; x < width; x += blockDim.x) {
-        const int a = level_at<kQuant>(img, base + static_cast<long long>(y) * width + x,
-                                       lo, span, levels);
-        if (static_cast<unsigned>(a) >= static_cast<unsigned>(levels)) continue;
+        const int a = glcm::level_at<kQuant>(
+            img, base + static_cast<long long>(y) * width + x, lo, span, levels);
+        if (!glcm::votes(a, levels)) continue;
         for (int k = 0; k < n_off; ++k) {
           const int yy = y + offs.dy[k];
           const int xx = x + offs.dx[k];
           if (yy >= height || xx < 0 || xx >= width) continue;
-          const int r = level_at<kQuant>(img, base + static_cast<long long>(yy) * width + xx,
-                                         lo, span, levels);
-          if (static_cast<unsigned>(r) >= static_cast<unsigned>(levels)) continue;
+          const int r = glcm::level_at<kQuant>(
+              img, base + static_cast<long long>(yy) * width + xx, lo, span, levels);
+          if (!glcm::votes(r, levels)) continue;
           atomicAdd(mine + k * cells + r * levels + a, 1);
         }
       }
@@ -115,27 +105,17 @@ fused_kernel(const void* __restrict__ img, const float* __restrict__ quant,
   }
 }
 
-int device_attr(cudaDeviceAttr attr) {
-  int dev = 0, value = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&value, attr, dev);
-  return value;
-}
-
 template <bool kQuant, bool kShared>
 int launch(const void* img, const float* quant, int* out, int batch, int height, int width,
            int levels, int copies, int tile_h, const Offsets& offs, size_t smem,
            cudaStream_t s) {
   auto kernel = fused_kernel<kQuant, kShared>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = glcm::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   int per_sm = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (per_sm < 1) per_sm = 1;
-  const int sms = device_attr(cudaDevAttrMultiProcessorCount);
+  const int sms = glcm::device_attr(cudaDevAttrMultiProcessorCount);
   const int tiles = (height + tile_h - 1) / tile_h;
   long long gx = (static_cast<long long>(per_sm) * sms + batch - 1) / batch;
   if (gx > tiles) gx = tiles;
@@ -172,7 +152,7 @@ int glcm_fused_launch(const void* img, const float* quant, int* out, int batch, 
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long set_bytes = (static_cast<long long>(n_off) * levels * levels + 1) * 4;
-  const int max_smem = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  const int max_smem = glcm::device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
   const int fit = static_cast<int>(max_smem / set_bytes);
   const bool q = quant != nullptr;
   if (fit >= 1) {

@@ -1,8 +1,9 @@
-"""Synthetic texture images reproducing the paper's Fig. 1 regimes (numpy).
+"""Synthetic texture images and volumes reproducing the paper's Fig. 1
+regimes (numpy).
 
-A copy of the 2-D generators of ``repro.data.images``, so that this package
-and ``chip_smoke.py`` need nothing of the reference package. The same
-(size, seed) gives the same image in both.
+A copy of the generators of ``repro.data.images``, so that this package and
+``chip_smoke.py`` need nothing of the reference package. The same (size or
+shape, seed) gives the same array in both.
 
 Fig 1(a): slow gray-level changes (high spatial correlation → vote
 conflicts concentrate on few GLCM bins — the paper's worst case for
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["smooth_texture", "random_texture", "PAPER_SIZES"]
+__all__ = ["smooth_texture", "random_texture", "smooth_volume", "random_volume", "PAPER_SIZES"]
 
 PAPER_SIZES = (1024, 4096, 8192, 16384)
 
@@ -39,3 +40,46 @@ def random_texture(size: int, seed: int = 0) -> np.ndarray:
     """Fig 1(b) analogue: iid uniform gray levels, uint8."""
     rng = np.random.default_rng(seed)
     return rng.integers(0, 256, size=(size, size)).astype(np.uint8)
+
+
+def _shape3(shape) -> tuple[int, int, int]:
+    if isinstance(shape, int):
+        return (shape, shape, shape)
+    d, h, w = (int(s) for s in shape)
+    return d, h, w
+
+
+def _upsample_linear(arr: np.ndarray, axis: int, size: int) -> np.ndarray:
+    """1-D linear interpolation of ``arr`` along ``axis`` to ``size`` samples."""
+    n = arr.shape[axis]
+    idx = np.linspace(0, n - 1, size)
+    x0 = np.floor(idx).astype(int)
+    x1 = np.minimum(x0 + 1, n - 1)
+    f = idx - x0
+    bshape = [1] * arr.ndim
+    bshape[axis] = size
+    a0 = np.take(arr, x0, axis=axis)
+    a1 = np.take(arr, x1, axis=axis)
+    return a0 * (1 - f).reshape(bshape) + a1 * f.reshape(bshape)
+
+
+def smooth_volume(shape, seed: int = 0) -> np.ndarray:
+    """Fig 1(a) regime in 3-D: trilinearly upsampled coarse noise → a slowly
+    varying (D, H, W) uint8 field (a CT-like stack; votes pile onto few bins,
+    the conflict-heavy case). ``shape`` is (d, h, w) or an int (a cube)."""
+    d, h, w = _shape3(shape)
+    rng = np.random.default_rng(seed)
+    coarse = rng.normal(size=tuple(max(s // 16, 2) for s in (d, h, w)))
+    vol = coarse
+    for axis, size in enumerate((d, h, w)):
+        vol = _upsample_linear(vol, axis, size)
+    vol = vol + 0.02 * rng.normal(size=vol.shape)  # slight high-freq detail
+    lo, hi = vol.min(), vol.max()
+    return ((vol - lo) / max(hi - lo, 1e-9) * 255).astype(np.uint8)
+
+
+def random_volume(shape, seed: int = 0) -> np.ndarray:
+    """Fig 1(b) regime in 3-D: iid uniform gray levels, (D, H, W) uint8."""
+    d, h, w = _shape3(shape)
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, size=(d, h, w)).astype(np.uint8)

@@ -2,14 +2,15 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library, ``build/repro_torch/lib<name>-<hash>.so`` at the root of the
-checkout, where ``<hash>`` covers the source and the compiler flags: a
-changed source builds anew, an unchanged one is loaded as it is. The build
+checkout, where ``<hash>`` covers the source, every ``csrc/*.cuh`` header it
+includes (directly or through another header) and the compiler flags: a
+changed source or header builds anew, an unchanged one is loaded as it is. The build
 happens at first use; ``build()`` compiles several sources at once, one
 nvcc process each. Libraries are loaded with ``ctypes``.
 
 The flags target Hopper (``sm_90a``) and keep IEEE arithmetic: precise
-division, no flush to zero, and never ``--use_fast_math`` — the fused kernel
-bins values with divisions that must match the PyTorch binning bit for bit.
+division, no flush to zero, and never ``--use_fast_math`` — the image kernels
+bin values with divisions that must match the PyTorch binning bit for bit.
 
 Nothing here runs on import: this module imports on machines with no
 compiler and no card, and only a call to ``build`` or ``load`` needs nvcc.
@@ -20,16 +21,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_DIR", "build", "library_path", "load", "nvcc"]
+__all__ = [
+    "KERNELS", "NVCC_FLAGS", "BUILD_DIR", "build", "library_path", "load", "nvcc", "sources",
+]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("glcm_vote", "glcm_fused")
+KERNELS = ("glcm_vote", "glcm_fused", "glcm_window", "glcm_volume")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-prec-div=true", "-ftz=false",
@@ -56,12 +60,29 @@ def nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` followed by every local header it includes,
+    directly or through another header, each once, in include order."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:  # grows while it is walked
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = CSRC / inc.decode()
+            if header.exists() and header not in found:
+                found.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives: the name
+    hashes the source, its local headers and the flags."""
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _report_path(name: str) -> Path:

@@ -1,6 +1,6 @@
 """The GLCM voting kernels for Hopper, each beside its plain PyTorch version.
 
-Counterparts of the two TPU kernels on the main path:
+Counterparts of the TPU kernels of ``repro/kernels/glcm_kernel.py``:
 
 ``glcm_vote``   ← ``repro/kernels/glcm_kernel.py::glcm_vote_pallas``
     (B, N) int32 pair streams → (B, L, L) int32 counts
@@ -9,6 +9,15 @@ Counterparts of the two TPU kernels on the main path:
     (B, H, W) stack, int32 levels or raw f32 + per-image (lo, span)
     → (B, n_off, L, L) int32 counts in one pass over the image
     (CUDA source: ``csrc/glcm_fused.cu``; plain version: ``glcm_fused_plain``)
+``glcm_window`` ← ``glcm_window_pallas``
+    windows of a (B, H, W) image (read in place) or an extracted
+    (B, gh, gw, rh, rw) patch grid → (B, gh, gw, n_off, L, L) int32, one
+    GLCM per window, pairs never crossing a window
+    (CUDA source: ``csrc/glcm_window.cu``; plain version: ``glcm_window_plain``)
+``glcm_volume`` ← ``glcm_volume_pallas``
+    (B, D, H, W) volumes → (B, n_off, L, L) int32 over (dz, dy, dx) offsets
+    in one pass, in depth slabs
+    (CUDA source: ``csrc/glcm_volume.cu``; plain version: ``glcm_volume_plain``)
 
 Each wrapper checks its arguments, then dispatches on the device of the
 tensor it was given: on the CPU it computes the plain version; on a CUDA
@@ -26,7 +35,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core.quantize import assert_levels
+from repro_torch.core.quantize import assert_levels, repeat_params
 from repro_torch.core.schemes import glcm_scatter_batch
 from repro_torch.kernels import build
 
@@ -35,17 +44,25 @@ __all__ = [
     "glcm_vote_plain",
     "glcm_fused",
     "glcm_fused_plain",
+    "glcm_window",
+    "glcm_window_plain",
+    "glcm_volume",
+    "glcm_volume_plain",
     "DEFAULT_CHUNK",
     "DEFAULT_COPIES",
+    "DEFAULT_SLAB_D",
     "MAX_OFFSETS",
 ]
 
 DEFAULT_CHUNK = 2048   # pair-stream slice a block votes per step
 DEFAULT_COPIES = 4     # R, the paper's copy count
-MAX_OFFSETS = 64       # offsets per fused launch (kMaxOffsets in glcm_fused.cu)
+DEFAULT_SLAB_D = 8     # depth slices per slab of the volume kernel
+MAX_OFFSETS = 64       # offsets per launch (kMaxOffsets in the image kernels)
+MAX_STREAMS = 65535    # streams per vote launch (the grid's y extent)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 
 
 def _function(lib_name: str, fn: str, argtypes: list) -> ctypes._CFuncPtr:
@@ -132,20 +149,22 @@ glcm_vote.launches = 0
 
 
 def _launch_vote(a, r, levels, chunk, copies) -> torch.Tensor:
+    """Launch the vote kernel, once per group of at most MAX_STREAMS streams
+    (a region fallback can hand it more streams than one grid holds)."""
     a = a.to(torch.int32).contiguous()
     r = r.to(torch.int32).contiguous()
     b, n = a.shape
-    if b > 65535:
-        raise ValueError(f"glcm_vote takes at most 65535 streams per launch, got {b}")
     out = torch.zeros((b, levels, levels), dtype=torch.int32, device=a.device)
     fn = _function("glcm_vote", "glcm_vote_launch",
-                   [_P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I, _P])
+                   [_P, _P, _P, _I, _LL, _I, _I, _I, _P])
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        code = fn(a.data_ptr(), r.data_ptr(), out.data_ptr(), b, n, levels, copies,
-                  chunk, stream)
-    _check_launch("glcm_vote", code)
-    glcm_vote.launches += 1
+        for lo in range(0, b, MAX_STREAMS):
+            hi = min(lo + MAX_STREAMS, b)
+            code = fn(a[lo:hi].data_ptr(), r[lo:hi].data_ptr(), out[lo:hi].data_ptr(),
+                      hi - lo, n, levels, copies, chunk, stream)
+            _check_launch("glcm_vote", code)
+            glcm_vote.launches += 1
     return out
 
 
@@ -245,4 +264,234 @@ def _launch_fused(stack, levels, offsets, tile_h, copies, quant) -> torch.Tensor
                   ctypes.addressof(dx), n_off, stream)
     _check_launch("glcm_fused", code)
     glcm_fused.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: per-window voting (texture maps)
+# ---------------------------------------------------------------------------
+
+
+def _pair(v, what: str) -> tuple[int, int]:
+    t = (int(v), int(v)) if isinstance(v, int) else tuple(int(x) for x in v)
+    if len(t) != 2 or min(t) < 1:
+        raise ValueError(f"{what} must be a positive int or (h, w) pair, got {v!r}")
+    return t
+
+
+def _windows(x: torch.Tensor, region_shape, stride) -> tuple[torch.Tensor, bool]:
+    """The (B, gh, gw, rh, rw) window grid of ``x`` and whether ``x`` was
+    batched. Without ``region_shape``, ``x`` is already a (gh, gw, rh, rw) or
+    (B, gh, gw, rh, rw) patch grid. With it, ``x`` is an (H, W) or (B, H, W)
+    image and the windows are strided views of it — window (i, j) starts at
+    (i·sh, j·sw); nothing is copied. ``stride`` defaults to the region shape
+    (tiles); window positions that do not fit are dropped."""
+    if region_shape is None:
+        if stride is not None:
+            raise ValueError("stride needs region_shape (an image, not a patch grid)")
+        if x.ndim not in (4, 5):
+            raise ValueError(
+                f"expected (gh, gw, rh, rw) or (B, gh, gw, rh, rw) patches, got "
+                f"{tuple(x.shape)}"
+            )
+        return (x if x.ndim == 5 else x[None]), x.ndim == 5
+    if x.ndim not in (2, 3):
+        raise ValueError(f"expected (H, W) or (B, H, W) image, got {tuple(x.shape)}")
+    rh, rw = _pair(region_shape, "region_shape")
+    sh, sw = _pair(region_shape if stride is None else stride, "stride")
+    img = x if x.ndim == 3 else x[None]
+    h, w = img.shape[-2:]
+    if rh > h or rw > w:
+        raise ValueError(f"region {(rh, rw)} exceeds input shape {(h, w)}")
+    return img.unfold(1, rh, sh).unfold(2, rw, sw), x.ndim == 3
+
+
+def _counts_by_offset(stack, levels: int, offsets, quant) -> torch.Tensor:
+    """(N, *spatial) → (N, n_off, L, L) int32: per offset, one masked
+    ``bincount`` over ``n·L² + ref·L + assoc``, so that the index of one
+    offset, not of all, is in memory at a time."""
+    return torch.stack(
+        [glcm_scatter_batch(stack, levels, (off,), quant=quant)[:, 0] for off in offsets],
+        dim=1,
+    )
+
+
+def glcm_window_plain(
+    x: torch.Tensor,
+    levels: int,
+    offsets: tuple[tuple[int, int], ...],
+    *,
+    region_shape=None,
+    stride=None,
+    quant=None,
+) -> torch.Tensor:
+    """Plain version of ``glcm_window``: the windows as a flat batch of
+    patches, each image's (lo, span) repeated over its windows, counted by
+    masked ``bincount`` over (window, ref, assoc) per offset."""
+    windows, batched = _windows(x, region_shape, stride)
+    b, gh, gw, rh, rw = windows.shape
+    flat = windows.reshape(-1, rh, rw)
+    if quant is not None:
+        quant = repeat_params(quant, flat.shape[0])  # per-image → per-window
+    out = _counts_by_offset(flat, levels, offsets, quant)
+    out = out.reshape(b, gh, gw, len(offsets), levels, levels)
+    return out if batched else out[0]
+
+
+def glcm_window(
+    x: torch.Tensor,
+    *,
+    levels: int,
+    offsets: tuple[tuple[int, int], ...],
+    region_shape=None,
+    stride=None,
+    copies: int = 1,
+    quant=None,
+) -> torch.Tensor:
+    """Per-window multi-offset GLCMs (int32), one launch for a whole stack.
+
+    ``x`` is an (H, W) / (B, H, W) image with ``region_shape=(rh, rw)`` and
+    ``stride=(sh, sw)`` (default: the region shape, i.e. tiles) → (gh, gw,
+    n_off, L, L) / (B, gh, gw, n_off, L, L), the kernel reading each window
+    in place; or, without ``region_shape``, an extracted (gh, gw, rh, rw) /
+    (B, gh, gw, rh, rw) patch grid (as ``repro``'s ``glcm_window_pallas``
+    takes). ``offsets`` are (dy, dx) with 0 <= dy < rh and |dx| < rw. Without
+    ``quant`` the values are levels (cast to int32; one outside [0, L) does
+    not vote). With ``quant=(lo, span)`` — python floats or per-image (B,)
+    tensors — the values are raw and every window bins with its image's
+    range. ``copies`` is the paper's R; it never changes the counts.
+    """
+    assert_levels(levels)
+    offsets = tuple((int(dy), int(dx)) for dy, dx in offsets)
+    if not 1 <= len(offsets) <= MAX_OFFSETS:
+        raise ValueError(f"need 1..{MAX_OFFSETS} offsets, got {len(offsets)}")
+    if copies < 1:
+        raise ValueError(f"copies must be >= 1, got {copies}")
+    windows, batched = _windows(x, region_shape, stride)
+    rh, rw = windows.shape[-2:]
+    for dy, dx in offsets:
+        if not (0 <= dy < rh) or abs(dx) >= rw:
+            raise ValueError(f"offset (dy={dy}, dx={dx}) does not fit region ({rh}, {rw})")
+    if _check_device(windows, "glcm_window") == "cpu":
+        return glcm_window_plain(x, levels, offsets, region_shape=region_shape, stride=stride,
+                                 quant=quant)
+    out = _launch_window(x, region_shape, stride, levels, offsets, copies, quant)
+    return out if batched else out[0]
+
+
+glcm_window.launches = 0
+
+
+def _launch_window(x, region_shape, stride, levels, offsets, copies, quant) -> torch.Tensor:
+    src = x.to(torch.float32 if quant is not None else torch.int32).contiguous()
+    windows, _ = _windows(src, region_shape, stride)
+    b, gh, gw, rh, rw = windows.shape
+    s_img, s_row, s_col, s_y, s_x = windows.stride()
+    if s_x != 1:
+        raise ValueError(f"window rows must be contiguous, got strides {windows.stride()}")
+    q = None if quant is None else _quant_block(quant, b, src.device)
+    n_off = len(offsets)
+    # Every count is written by the kernel (each block owns its window's slot).
+    out = torch.empty((b, gh, gw, n_off, levels, levels), dtype=torch.int32,
+                      device=src.device)
+    dy = (ctypes.c_int * n_off)(*(o[0] for o in offsets))
+    dx = (ctypes.c_int * n_off)(*(o[1] for o in offsets))
+    fn = _function("glcm_window", "glcm_window_launch",
+                   [_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _I, _I, _P, _P, _I, _P])
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        code = fn(windows.data_ptr(), None if q is None else q.data_ptr(), out.data_ptr(),
+                  b, gh, gw, rh, rw, s_img, s_row, s_col, s_y, levels, copies,
+                  ctypes.addressof(dy), ctypes.addressof(dx), n_off, stream)
+    _check_launch("glcm_window", code)
+    glcm_window.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4: depth-slab volume pass
+# ---------------------------------------------------------------------------
+
+
+def glcm_volume_plain(
+    vol: torch.Tensor,
+    levels: int,
+    offsets: tuple[tuple[int, int, int], ...],
+    *,
+    quant=None,
+) -> torch.Tensor:
+    """Plain version of ``glcm_volume``: (B, D, H, W) → (B, n_off, L, L)
+    int32, a masked ``bincount`` over (volume, ref, assoc) per offset,
+    binned from raw values when ``quant`` is given."""
+    return _counts_by_offset(vol, levels, tuple(offsets), quant)
+
+
+def glcm_volume(
+    vol: torch.Tensor,
+    *,
+    levels: int,
+    offsets: tuple[tuple[int, int, int], ...],
+    slab_d: int = DEFAULT_SLAB_D,
+    copies: int = 1,
+    quant=None,
+) -> torch.Tensor:
+    """One pass over volume(s) → multi-direction 3-D GLCMs (int32).
+
+    ``vol`` is (D, H, W) → (n_off, L, L) or (B, D, H, W) → (B, n_off, L, L),
+    in one launch. ``offsets`` are (dz, dy, dx) with 0 <= dz <= slab_d,
+    |dy| < H and |dx| < W, as the reference kernel requires (dy and dx may
+    be negative). Without ``quant`` the values are levels (cast to int32;
+    one outside [0, L) does not vote); with ``quant=(lo, span)`` — python
+    floats or per-volume (B,) tensors — they are raw and binned in
+    registers. ``slab_d`` depth slices make a block's unit of work and
+    ``copies`` is the paper's R; neither changes the counts.
+    """
+    if vol.ndim not in (3, 4):
+        raise ValueError(f"expected (D, H, W) or (B, D, H, W) volume, got {tuple(vol.shape)}")
+    assert_levels(levels)
+    offsets = tuple((int(dz), int(dy), int(dx)) for dz, dy, dx in offsets)
+    if not 1 <= len(offsets) <= MAX_OFFSETS:
+        raise ValueError(f"need 1..{MAX_OFFSETS} offsets, got {len(offsets)}")
+    if slab_d < 1 or copies < 1:
+        raise ValueError(f"slab_d and copies must be >= 1, got {slab_d}, {copies}")
+    h, w = vol.shape[-2:]
+    for dz, dy, dx in offsets:
+        if not (0 <= dz <= slab_d):
+            raise ValueError(f"dz={dz} must be in [0, slab_d={slab_d}]")
+        if abs(dy) >= h or abs(dx) >= w:
+            raise ValueError(f"in-plane offset (dy={dy}, dx={dx}) exceeds plane ({h}, {w})")
+    batched = vol.ndim == 4
+    stack = vol if batched else vol[None]
+    if _check_device(stack, "glcm_volume") == "cpu":
+        out = glcm_volume_plain(stack, levels, offsets, quant=quant)
+    else:
+        out = _launch_volume(stack, levels, offsets, slab_d, copies, quant)
+    return out if batched else out[0]
+
+
+glcm_volume.launches = 0
+
+
+def _launch_volume(stack, levels, offsets, slab_d, copies, quant) -> torch.Tensor:
+    b, d, h, w = stack.shape
+    if quant is None:
+        x = stack.to(torch.int32).contiguous()
+        q = None
+    else:
+        x = stack.to(torch.float32).contiguous()
+        q = _quant_block(quant, b, stack.device)
+    n_off = len(offsets)
+    out = torch.zeros((b, n_off, levels, levels), dtype=torch.int32, device=stack.device)
+    dz = (ctypes.c_int * n_off)(*(o[0] for o in offsets))
+    dy = (ctypes.c_int * n_off)(*(o[1] for o in offsets))
+    dx = (ctypes.c_int * n_off)(*(o[2] for o in offsets))
+    fn = _function("glcm_volume", "glcm_volume_launch",
+                   [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P])
+    with torch.cuda.device(stack.device):
+        stream = torch.cuda.current_stream(stack.device).cuda_stream
+        code = fn(x.data_ptr(), None if q is None else q.data_ptr(), out.data_ptr(),
+                  b, d, h, w, levels, copies, slab_d, ctypes.addressof(dz),
+                  ctypes.addressof(dy), ctypes.addressof(dx), n_off, stream)
+    _check_launch("glcm_volume", code)
+    glcm_volume.launches += 1
     return out

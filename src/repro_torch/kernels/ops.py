@@ -1,8 +1,10 @@
 """Public wrappers around the CUDA voting kernels.
 
-Counterpart of ``repro.kernels.ops`` for the two main-path kernels:
-``glcm_cuda`` ↔ ``glcm_pallas`` (pair planes, binning, pair-stream vote) and
-``glcm_cuda_multi`` ↔ ``glcm_pallas_multi`` (fused multi-offset image pass).
+Counterpart of ``repro.kernels.ops``:
+``glcm_cuda`` ↔ ``glcm_pallas`` (pair planes, binning, pair-stream vote),
+``glcm_cuda_multi`` ↔ ``glcm_pallas_multi`` (fused multi-offset image pass),
+``glcm_cuda_volume`` ↔ ``glcm_pallas_volume`` (depth-slab volume pass) and
+``glcm_cuda_windowed`` ↔ ``glcm_pallas_windowed`` (one GLCM per window).
 On a CPU tensor the kernels' plain versions compute the counts; on a CUDA
 tensor the kernels do.
 """
@@ -16,11 +18,23 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.glcm_kernel import (
     DEFAULT_CHUNK,
     DEFAULT_COPIES,
+    DEFAULT_SLAB_D,
     glcm_fused,
+    glcm_volume,
     glcm_vote,
+    glcm_window,
 )
 
-__all__ = ["glcm_cuda", "glcm_cuda_multi", "default_tile_h", "DEFAULT_CHUNK", "DEFAULT_COPIES"]
+__all__ = [
+    "glcm_cuda",
+    "glcm_cuda_multi",
+    "glcm_cuda_volume",
+    "glcm_cuda_windowed",
+    "default_tile_h",
+    "default_slab_d",
+    "DEFAULT_CHUNK",
+    "DEFAULT_COPIES",
+]
 
 
 def _bin_planes(planes, levels: int, quant, nd: int):
@@ -100,3 +114,59 @@ def glcm_cuda_multi(
     return glcm_fused(
         img, levels=levels, offsets=offsets, tile_h=tile_h, copies=copies, quant=quant
     )
+
+
+def default_slab_d(offsets: tuple[tuple[int, int, int], ...]) -> int:
+    """max(8, largest dz) rounded up to 8 — the reference's default."""
+    max_dz = max((dz for dz, _, _ in offsets), default=1)
+    return max(DEFAULT_SLAB_D, -(-max_dz // 8) * 8)
+
+
+def glcm_cuda_volume(
+    vol: torch.Tensor,
+    levels: int,
+    pairs: tuple[tuple[int, int], ...],
+    *,
+    offsets: tuple[tuple[int, int, int], ...] | None = None,
+    slab_d: int | None = None,
+    copies: int = 1,
+    quant=None,
+) -> torch.Tensor:
+    """Multi-direction 3-D GLCM in one volume pass via the depth-slab kernel.
+
+    ``pairs`` are (d, direction) tuples over the 13 unique 3-D directions
+    (``ref.DIRECTIONS_3D``); ``offsets`` passes explicit (dz, dy, dx) voxel
+    offsets instead. (D, H, W) → (len(pairs), L, L) int32, (B, D, H, W) →
+    (B, len(pairs), L, L) in one launch. ``slab_d`` defaults to
+    ``default_slab_d`` of the offsets.
+    """
+    if offsets is None:
+        offsets = tuple(_ref.glcm_offsets_3d(d, k) for d, k in pairs)
+    offsets = tuple(offsets)
+    if slab_d is None:
+        slab_d = default_slab_d(offsets)
+    return glcm_volume(vol, levels=levels, offsets=offsets, slab_d=slab_d, copies=copies,
+                       quant=quant)
+
+
+def glcm_cuda_windowed(
+    x: torch.Tensor,
+    levels: int,
+    pairs: tuple[tuple[int, int], ...],
+    *,
+    region_shape=None,
+    stride=None,
+    copies: int = 1,
+    quant=None,
+) -> torch.Tensor:
+    """Per-window GLCMs via the window kernel, int32.
+
+    ``x`` is an (H, W) / (B, H, W) image with ``region_shape`` and
+    ``stride``, whose windows the kernel reads in place, or — without them —
+    a (gh, gw, rh, rw) / (B, gh, gw, rh, rw) patch grid (the output of
+    ``core.schemes.extract_regions``). The result appends (len(pairs), L, L)
+    to the grid axes; the whole texture map is one launch.
+    """
+    offsets = tuple(_ref.glcm_offsets(d, t) for d, t in pairs)
+    return glcm_window(x, levels=levels, offsets=offsets, region_shape=region_shape,
+                       stride=stride, copies=copies, quant=quant)

@@ -146,11 +146,12 @@ def test_auto_resolves_per_device():
     assert backends.resolve_scheme(one, cuda) == "cuda"
     assert backends.resolve_scheme(many, cuda) == "cuda_fused"
     assert backends.resolve_scheme(many.replace(scheme="scatter"), cuda) == "scatter"
-    with pytest.raises(NotImplementedError, match="volume slice"):
-        backends.resolve_scheme(GLCMSpec(levels=8, pairs=((1, 4),), ndim=3), cuda)
+    assert backends.resolve_scheme(GLCMSpec(levels=8, pairs=((1, 4),), ndim=3),
+                                   cuda) == "cuda_volume"
     assert tplan.compile_plan(many, (2, 9, 9), device="cpu").spec.scheme == "onehot"
     assert tplan.compile_plan(one, (9, 9), device="cpu").spec.scheme == "onehot"
-    assert backends.available_backends() == ("cuda", "cuda_fused", "onehot", "scatter")
+    assert backends.available_backends() == (
+        "blocked", "cuda", "cuda_fused", "cuda_volume", "onehot", "scatter")
 
 
 def test_plan_cache_hits_and_misses():
@@ -196,8 +197,9 @@ def test_later_slices_raise_not_implemented():
         tplan.compile_plan(spec, (9, 9), device="cpu", temporal_window=4)
     with pytest.raises(NotImplementedError, match="analyzer"):
         tplan.compile_plan(spec, (9, 9), device="cpu", check="lint")
-    with pytest.raises(NotImplementedError, match="region"):
-        tplan.compile_plan(spec.replace(region="tiles", region_shape=3), (9, 9), device="cpu")
+    # Regions came with their slice: a tiles plan compiles, with its grid.
+    p = tplan.compile_plan(spec.replace(region="tiles", region_shape=3), (9, 9), device="cpu")
+    assert p.grid == (3, 3)
     with pytest.raises(ValueError, match="check mode"):
         tplan.compile_plan(spec, (9, 9), device="cpu", check="strict")
 

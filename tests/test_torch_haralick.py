@@ -120,3 +120,30 @@ def test_normalize_glcm_matches_reference():
     np.testing.assert_allclose(th.normalize_glcm(torch.from_numpy(counts)).numpy(),
                                np.asarray(jh.normalize_glcm(jnp.asarray(counts))),
                                rtol=1e-6, atol=0)
+
+
+def test_f14_in_chunks_matches_reference(monkeypatch):
+    # f14's eigensolve runs in chunks of matrices (cuSOLVER refuses a texture
+    # map's whole batch); a ragged last chunk must not change any feature.
+    rng = np.random.default_rng(4)
+    counts = _glcm_counts(rng, 8, "random", n=7)
+    whole = th.haralick_features(torch.from_numpy(counts))
+    monkeypatch.setattr(th, "EIG_CHUNK_ELEMENTS", 3 * 8 * 8)
+    chunked = th.haralick_features(torch.from_numpy(counts))
+    np.testing.assert_array_equal(chunked.numpy(), whole.numpy())
+    _assert_features_close(chunked.numpy(), reference_features(counts))
+
+
+def test_correlation_of_a_single_level_marginal_is_zero():
+    # Every pair's reference level is 3 (a marginal with no variance): f3 is
+    # 0/0, taken as 0 exactly rather than as rounding noise over the guard;
+    # the other features still follow the reference.
+    counts = np.zeros((2, 8, 8), np.float32)
+    counts[0, 3, [1, 2, 5]] = (7, 11, 13)
+    counts[1] = counts[0].T
+    got = th.haralick_features(torch.from_numpy(counts)).numpy()
+    np.testing.assert_array_equal(got[:, 2], 0.0)
+    want = reference_features(counts)
+    keep = [k for k in range(14) if k != 2]
+    _assert_features_close(got[:, keep], want[:, keep],
+                           select=tuple(th.FEATURE_NAMES[k] for k in keep))

@@ -221,11 +221,29 @@ def test_build_flags_keep_ieee_arithmetic():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-prec-div=true" in flags and "-ftz=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert set(build.KERNELS) == {"glcm_vote", "glcm_fused"}
+    assert set(build.KERNELS) == {"glcm_vote", "glcm_fused", "glcm_window", "glcm_volume"}
     for name in build.KERNELS:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
         assert (build.CSRC / f"{name}.cu").exists()
+    for name in ("glcm_fused", "glcm_window", "glcm_volume"):
+        assert build.CSRC / "glcm_common.cuh" in build.sources(name)
+
+
+def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
+    # An edited header must give a new library name, or a stale library
+    # built from the old header would be loaded. No compiler is called.
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("constexpr int kB = 1;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert build.sources("k") == [tmp_path / "k.cu", tmp_path / "a.cuh", tmp_path / "b.cuh"]
+    before = build.library_path("k")
+    (tmp_path / "b.cuh").write_text("constexpr int kB = 2;\n")  # included through a.cuh
+    after = build.library_path("k")
+    assert after != before and after.name.startswith("libk-")
+    (tmp_path / "b.cuh").write_text("constexpr int kB = 1;\n")
+    assert build.library_path("k") == before
 
 
 def test_build_without_nvcc_raises(monkeypatch):
