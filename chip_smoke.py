@@ -31,6 +31,28 @@ Phases, each printing one JSON line:
    ``torch.bincount`` of the pre-built linearised index (where it fits) at
    the main-path shapes, the bound of each kernel, glcm_features images/s,
    windows/s and voxels/s end to end, and the Haralick tail alone.
+7. ``histogram``: ``kernels.histogram`` on the 16384² image binned to
+   L = 32 (the contended case) and on the random stack[4] binned to
+   L = 256, with launch counts, exact against the plain version and
+   ``torch.bincount``, and the kernel, plain and ``torch.bincount`` times.
+8. ``temporal``: ``glcm_feature_stream(temporal_window=16)`` over
+   ``texture_video(4096, 32, change_at=16)`` (global spec, PAPER_PAIRS,
+   L = 32): launches (one ``glcm_fused`` per frame, nothing else), window
+   counts bit for bit against per-frame plain counts summed before the ring
+   fills, when it is full and after the scene change, features against the
+   CPU's; the per-frame latency of the incremental step against the
+   recompute of a 16-frame window in one batched call.
+9. ``texture_stream``: the texture map (32² windows at stride 16) as a
+   counts-only temporal stream with an 8-frame ring (8.5 GB) over the same
+   frames: one ``glcm_window`` per frame, exact at two steps, the per-step
+   latency and the peak device memory.
+10. ``pipeline``: ``glcm_feature_stream`` over 32 float32 4096² host images
+    (the 8 of the stack, 4 times) at prefetch 1 and 2 and batch size 1 and
+    8: side-stream copies from pinned buffers, features against
+    ``glcm_features``, images/s and the overlap gain, and the times of one
+    host memcpy into pinned memory and of one host-to-device copy.
+
+Each phase prints its seconds (``phase_seconds``).
 
 Then the ``kernels`` line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without a card, or a
@@ -53,6 +75,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core.glcm import PAPER_PAIRS, VOLUME_PAIRS, glcm, glcm_features  # noqa: E402
+from repro_torch.core.pipeline import coalesce_images, glcm_feature_stream  # noqa: E402
 from repro_torch.core.haralick import haralick_features  # noqa: E402
 from repro_torch.core.plan import compile_plan  # noqa: E402
 from repro_torch.core.quantize import bin_values, uniform_params  # noqa: E402
@@ -63,8 +86,9 @@ from repro_torch.data.images import (  # noqa: E402
     random_volume,
     smooth_texture,
     smooth_volume,
+    texture_video,
 )
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.glcm_kernel import (  # noqa: E402
     glcm_fused,
     glcm_fused_plain,
@@ -75,6 +99,7 @@ from repro_torch.kernels.glcm_kernel import (  # noqa: E402
     glcm_window,
     glcm_window_plain,
 )
+from repro_torch.kernels.histogram_kernel import histogram, histogram_plain  # noqa: E402
 from repro_torch.kernels.ops import default_slab_d, default_tile_h  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     DIRECTIONS_3D,
@@ -92,13 +117,18 @@ SCALAR_OPS_PER_S = 67e12
 LEVELS = 32
 FEATURE_RTOL, FEATURE_ATOL, F14_ATOL = 1e-5, 1e-6, 1e-4
 DEV = torch.device("cuda", 0)
-KERNELS = (glcm_vote, glcm_fused, glcm_window, glcm_volume)
+KERNELS = (glcm_vote, glcm_fused, glcm_window, glcm_volume, histogram)
 
 # The texture map (benchmarks/texture_map.py's geometry at the paper's size)
 # and the volumes of the main path.
 WINDOW, WINDOW_STRIDE, TILE = 32, 16, 256
 VOLUME_SHAPE = (256, 512, 512)
 VOLUME_DIRECTION = 7
+
+# The streams: texture_video(4096, 32, change_at=16), a 16-frame global
+# window and an 8-frame texture-map window; the pipeline's 32 host images.
+VIDEO_FRAMES, VIDEO_CHANGE, STREAM_WINDOW, TEXTURE_WINDOW = 32, 16, 16, 8
+PIPELINE_IMAGES = 32
 
 
 def emit(obj: dict) -> None:
@@ -225,9 +255,52 @@ def phase_kernel_check() -> None:
         require(torch.equal(got, want), f"glcm_fused scalar quant L={levels}")
         cases += 2
         cases += _check_window(rng, levels) + _check_volume(rng, levels)
+    hist_cases = _check_histogram(rng)
     torch.cuda.synchronize()
-    emit({"phase": "kernel_check", "cases": cases, "levels": [8, 32, 64, 128, 256],
-          "exact": True})
+    emit({"phase": "kernel_check", "cases": cases + hist_cases,
+          "levels": [8, 32, 64, 128, 256], "histogram_cases": hist_cases,
+          "histogram_levels": list(HISTOGRAM_LEVELS), "exact": True})
+
+
+HISTOGRAM_LEVELS = (1, 8, 32, 256, 4096, 65536)
+
+
+def _hist_values(rng, n: int, levels: int, dtype) -> np.ndarray:
+    """Values mostly in [0, L) with -1 pads and values outside [0, L) on both
+    sides where the dtype holds them; floats carry fractions, negative ones
+    included (they truncate toward zero)."""
+    info = np.iinfo(dtype) if np.issubdtype(dtype, np.integer) else None
+    lo = -3 if info is None else max(-3, int(info.min))
+    hi = levels + 3 if info is None else min(levels + 3, int(info.max) + 1)
+    v = rng.integers(lo, hi, size=n)
+    if lo < 0:
+        v[::7] = -1
+    if info is None:
+        return (v + rng.choice([0.0, 0.25, 0.5, 0.99], size=n)).astype(dtype)
+    return v.astype(dtype)
+
+
+def _check_histogram(rng) -> int:
+    """histogram against its plain version: every L of HISTOGRAM_LEVELS
+    (65536 takes the global-atomics path), lengths that are not a multiple
+    of the chunk, an empty input, -1 and other out-of-range values, five
+    input dtypes, and R = 4 / R = 3 with chunks 2048 / 96."""
+    cases = 0
+    for levels in HISTOGRAM_LEVELS:
+        for dtype in (np.int8, np.uint8, np.int32, np.int64, np.float32):
+            for n in (1, 2047, 1_000_003):
+                v = torch.from_numpy(_hist_values(rng, n, levels, dtype)).to(DEV)
+                want = histogram_plain(v, levels)
+                for chunk, copies in ((2048, 4), (96, 3)):
+                    got = histogram(v, levels=levels, chunk=chunk, copies=copies)
+                    require(torch.equal(got, want),
+                            f"histogram L={levels} {dtype.__name__} n={n} R={copies}")
+                    cases += 1
+        empty = histogram(torch.empty(0, dtype=torch.int32, device=DEV), levels=levels)
+        require(torch.equal(empty, torch.zeros(levels, dtype=torch.int32, device=DEV)),
+                f"histogram of an empty input, L={levels}")
+        cases += 1
+    return cases
 
 
 def _check_window(rng, levels: int) -> int:
@@ -689,27 +762,257 @@ def phase_volume_timing(vol, chk) -> dict:
     return t
 
 
+# ---------------------------------------------------------------------------
+# The histogram kernel, the temporal streams and the pipeline
+# ---------------------------------------------------------------------------
+
+
+def phase_histogram(stack, big) -> dict:
+    """kernels.histogram on the 16384² smooth image binned to L = 32 and on
+    the random stack[4] binned to L = 256 (the binning is input set-up)."""
+    inputs = {}
+    for name, img, levels in (("big", big, LEVELS), ("stack4", stack[4], 256)):
+        inputs[name] = (bin_values(img, levels, *uniform_params(img)), levels)
+    out = {}
+    counts = {name: _drive(out, f"histogram_{name}", lambda v=v, n=n: ops.histogram(v, n))
+              for name, (v, n) in inputs.items()}
+    require(out["histogram_big_launches"]["histogram"] == 1
+            and out["histogram_stack4_launches"]["histogram"] == 1,
+            "histogram main path did not launch the kernel once per call")
+    for name, (v, levels) in inputs.items():
+        plain = histogram_plain(v, levels)
+        err = max_abs_err(counts[name], plain)
+        require(err == 0, f"histogram {name} differs from plain by {err}")
+        require(torch.equal(torch.bincount(v.reshape(-1), minlength=levels).to(torch.int32),
+                            counts[name]), f"histogram {name} != torch.bincount")
+        require(int(counts[name].to(torch.int64).sum()) == v.numel(), f"histogram {name} total")
+        out[f"histogram_{name}_max_abs_err"] = err
+        out[f"histogram_{name}_ms"] = cuda_ms(lambda: ops.histogram(v, levels), reps=10)
+        out[f"histogram_{name}_plain_ms"] = cuda_ms(lambda: histogram_plain(v, levels), reps=3)
+        out[f"histogram_{name}_library_ms"] = cuda_ms(
+            lambda: torch.bincount(v.reshape(-1), minlength=levels), reps=3)
+        # Each value read once (4 B) and the (L,) counts written once; one
+        # compare and one add per value.
+        out[f"histogram_{name}_bound_ms"], out[f"histogram_{name}_bound_by"] = bound(
+            v.numel() * 4 + levels * 4, 2 * v.numel())
+        out[f"histogram_{name}_values"] = v.numel()
+    emit({"phase": "histogram", **out})
+    return out
+
+
+def _window_sum(per_frame: torch.Tensor, t: int, window: int) -> torch.Tensor:
+    return per_frame[max(0, t + 1 - window): t + 1].sum(dim=0)
+
+
+def phase_temporal(frames_dev) -> dict:
+    """stream-4096-w16: the global temporal stream through glcm_feature_stream
+    (features) and a counts-only stream plan (exactness and step latency)."""
+    spec = GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform", vrange=(0, 255))
+    out = {}
+    host_frames = [f for f in frames_dev.cpu().numpy()]
+    feats = _drive(out, "stream_features", lambda: torch.stack(list(
+        glcm_feature_stream(host_frames, spec=spec, temporal_window=STREAM_WINDOW))))
+    _only(out["stream_features_launches"], ("glcm_fused",), "temporal stream")
+    require(out["stream_features_launches"]["glcm_fused"] == VIDEO_FRAMES,
+            f"temporal stream launched glcm_fused {out['stream_features_launches']} times")
+
+    # Per-frame counts of the plain fused version, summed over each window.
+    offsets = tuple(glcm_offsets(d, t) for d, t in PAPER_PAIRS)
+    per_frame = torch.stack([
+        glcm_fused_plain(f[None], LEVELS, offsets, quant=(0.0, 255.0))[0].to(torch.int64)
+        for f in frames_dev])
+    plan = compile_plan(spec, tuple(frames_dev.shape[1:]), temporal_window=STREAM_WINDOW)
+    require(plan.spec.scheme == "cuda_fused", f"stream resolved to {plan.spec.scheme}")
+    checked = (STREAM_WINDOW // 2 - 1, STREAM_WINDOW - 1, VIDEO_CHANGE + 4)
+    state = plan.init_state()
+    f_err = f14_err = 0.0
+    for t, frame in enumerate(frames_dev):
+        state, _ = plan.update(state, frame)
+        if t in checked:
+            want = _window_sum(per_frame, t, STREAM_WINDOW)
+            require(torch.equal(state.counts.to(torch.int64), want),
+                    f"temporal counts at step {t} != plain window sum")
+            e, e14 = _features_err(feats[t], want, f"temporal features at step {t}")
+            f_err, f14_err = max(f_err, e), max(f14_err, e14)
+    out["stream_checked_steps"] = list(checked)
+    out["stream_features_max_abs_err_f1_f13"] = f_err
+    out["stream_features_max_abs_err_f14"] = f14_err
+
+    # Latency: the incremental counts step (median over the frames after the
+    # ring filled), the same step with features, and the recompute of a
+    # window as one batched call summed over its frames.
+    def step_latency(p) -> float:
+        st = p.init_state()
+        times = []
+        for t, frame in enumerate(frames_dev):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, o = p.update(st, frame)
+            torch.cuda.synchronize()
+            if t >= STREAM_WINDOW:
+                times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    out["stream_step_ms"] = step_latency(plan) * 1e3
+    fplan = compile_plan(spec, tuple(frames_dev.shape[1:]), features=True,
+                         temporal_window=STREAM_WINDOW)
+    out["stream_features_step_ms"] = step_latency(fplan) * 1e3
+    window = frames_dev[VIDEO_CHANGE:VIDEO_CHANGE + STREAM_WINDOW]
+    batch = compile_plan(spec, tuple(window.shape))
+    out["stream_recompute_ms"] = _host_seconds(lambda: batch(window).sum(dim=0), reps=5) * 1e3
+    out["stream_incremental_vs_recompute"] = out["stream_recompute_ms"] / out["stream_step_ms"]
+    emit({"phase": "temporal", "path": "stream-4096-w16", **out})
+    return out
+
+
+def phase_texture_stream(frames_dev) -> dict:
+    """texture-stream-4096-w8: the texture map as a counts-only stream with
+    an 8-frame ring, exact at two steps; its per-step latency and peak
+    memory. Everything it allocates is freed before it returns."""
+    spec = GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform", vrange=(0, 255),
+                    region="window", region_shape=WINDOW, region_stride=WINDOW_STRIDE)
+    offsets = tuple(glcm_offsets(d, t) for d, t in PAPER_PAIRS)
+    kw = dict(region_shape=(WINDOW, WINDOW), stride=(WINDOW_STRIDE, WINDOW_STRIDE))
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    base = torch.cuda.memory_allocated(DEV)  # the peak is the stream's own
+    plan = compile_plan(spec, tuple(frames_dev.shape[1:]), temporal_window=TEXTURE_WINDOW)
+    require(plan.spec.scheme == "cuda_fused" and plan.backend.caps.region_grid,
+            f"texture stream resolved to {plan.spec.scheme}")
+    state = plan.init_state()
+    out["texture_stream_ring_bytes"] = state.ring.numel() * 4
+    checked = (TEXTURE_WINDOW - 1, VIDEO_CHANGE + 4)
+    times = []
+    reset_launches()
+    for t, frame in enumerate(frames_dev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, counts = plan.update(state, frame)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del counts
+        if t == checked[0]:  # the ring is full: the steady state's peak
+            out["texture_stream_peak_bytes"] = torch.cuda.max_memory_allocated(DEV) - base
+        if t in checked:
+            want = torch.zeros_like(state.counts, dtype=torch.int64)
+            for f in frames_dev[max(0, t + 1 - TEXTURE_WINDOW): t + 1]:
+                want += glcm_window_plain(f, LEVELS, offsets, quant=(0.0, 255.0), **kw)
+            require(torch.equal(state.counts.to(torch.int64), want),
+                    f"texture stream counts at step {t} != plain window sum")
+            del want
+    out["texture_stream_launches"] = launches()
+    _only(out["texture_stream_launches"], ("glcm_window",), "texture stream")
+    require(out["texture_stream_launches"]["glcm_window"] == VIDEO_FRAMES,
+            "texture stream: not one glcm_window launch per frame")
+    out["texture_stream_checked_steps"] = list(checked)
+    out["texture_stream_step_ms"] = float(np.median(times[TEXTURE_WINDOW:])) * 1e3
+    out["texture_stream_first_step_ms"] = times[0] * 1e3
+    out["texture_stream_windows"] = math.prod(plan.grid)
+    del state, plan
+    torch.cuda.empty_cache()
+    emit({"phase": "texture_stream", "path": "texture-stream-4096-w8", **out})
+    return out
+
+
+def phase_pipeline(stack, features) -> dict:
+    """pipeline-32x4096: glcm_feature_stream over 32 host images at prefetch
+    1 and 2 and batch size 1 and 8, after one warm-up run."""
+    host = stack.cpu().numpy()
+    images = [host[i % host.shape[0]] for i in range(PIPELINE_IMAGES)]
+    spec = GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform")
+    out = {}
+
+    def run(prefetch: int, batch_size: int) -> list:
+        return list(glcm_feature_stream(images, spec=spec, prefetch=prefetch,
+                                        batch_size=batch_size))
+
+    run(2, 1)  # warm-up: plans and pinned host memory
+    run(2, 8)
+    torch.cuda.synchronize()
+    for batch_size in (1, 8):
+        for prefetch in (1, 2):
+            name = f"pipeline_b{batch_size}_p{prefetch}"
+            got = _drive(out, name, lambda: run(prefetch, batch_size))
+            require(len(got) == PIPELINE_IMAGES, f"{name}: {len(got)} results")
+            expect = -(-PIPELINE_IMAGES // batch_size)
+            require(out[f"{name}_launches"]["glcm_fused"] == expect,
+                    f"{name}: glcm_fused launched {out[f'{name}_launches']} times")
+            for i, g in enumerate(got):
+                want = features[i % host.shape[0]]
+                require(g.shape == want.shape and bool(torch.isfinite(g).all()),
+                        f"{name}: result {i} of shape {tuple(g.shape)}")
+                require(torch.allclose(g[..., :13], want[..., :13], rtol=FEATURE_RTOL,
+                                       atol=FEATURE_ATOL)
+                        and torch.allclose(g[..., 13], want[..., 13], rtol=0, atol=F14_ATOL),
+                        f"{name}: result {i} differs from glcm_features")
+            out[f"{name}_images_per_s"] = PIPELINE_IMAGES / out[f"{name}_s"]
+        out[f"pipeline_b{batch_size}_overlap_gain"] = (
+            out[f"pipeline_b{batch_size}_p2_images_per_s"]
+            / out[f"pipeline_b{batch_size}_p1_images_per_s"])
+
+    # The host side alone: grouping 32 images into stacks of 8 (np.stack),
+    # one image's memcpy into pinned memory and its copy to the device.
+    t0 = time.perf_counter()
+    for _ in coalesce_images(images, 8):
+        pass
+    out["pipeline_coalesce_ms_per_stack"] = (time.perf_counter() - t0) / (
+        PIPELINE_IMAGES // 8) * 1e3
+    pinned = torch.empty(host.shape[1:], dtype=torch.float32, pin_memory=True)
+    src = torch.from_numpy(host[0])
+    t0 = time.perf_counter()
+    for _ in range(5):
+        pinned.copy_(src)
+    out["pipeline_pinned_memcpy_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    dst = torch.empty(host.shape[1:], dtype=torch.float32, device=DEV)
+    out["pipeline_h2d_ms"] = cuda_ms(lambda: dst.copy_(pinned, non_blocking=True), reps=10)
+    out["pipeline_image_bytes"] = pinned.numel() * 4
+    emit({"phase": "pipeline", "path": "pipeline-32x4096", **out})
+    return out
+
+
+def timed(name: str, fn, *args):
+    """Run one phase and print its seconds on a line of their own."""
+    t0 = time.perf_counter()
+    result = fn(*args)
+    emit({"phase_seconds": name, "seconds": time.perf_counter() - t0})
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script needs an NVIDIA card",
               file=sys.stderr)
         return 2
-    phase_device()
-    phase_build()
-    phase_kernel_check()
-    stack, big, vol = make_inputs()
-    main_run = phase_main_path(stack, big, vol)
-    chk = phase_checks(stack, big, main_run)
-    tchk = phase_texture_checks(stack, main_run)
-    vchk = phase_volume_checks(vol, main_run)
-    t = phase_timing(stack, big, chk)
-    t.update(phase_texture_timing(stack, tchk))
-    t.update(phase_volume_timing(vol, vchk))
+    t_start = time.perf_counter()
+    timed("device", phase_device)
+    timed("build", phase_build)
+    timed("kernel_check", phase_kernel_check)
+    stack, big, vol = timed("inputs", make_inputs)
+    main_run = timed("main_path", phase_main_path, stack, big, vol)
+    chk = timed("checks", phase_checks, stack, big, main_run)
+    tchk = timed("texture_checks", phase_texture_checks, stack, main_run)
+    vchk = timed("volume_checks", phase_volume_checks, vol, main_run)
+    t = timed("timing", phase_timing, stack, big, chk)
+    t.update(timed("texture_timing", phase_texture_timing, stack, tchk))
+    t.update(timed("volume_timing", phase_volume_timing, vol, vchk))
+    for chk_out in (tchk, vchk):  # free the counts; keep the numbers
+        chk_out.pop("counts")
+    h = timed("histogram", phase_histogram, stack, big)
+    t0 = time.perf_counter()
+    frames = torch.from_numpy(texture_video(4096, VIDEO_FRAMES, change_at=VIDEO_CHANGE)).to(DEV)
+    emit({"phase_seconds": "video", "seconds": time.perf_counter() - t0})
+    timed("temporal", phase_temporal, frames)
+    timed("texture_stream", phase_texture_stream, frames)
+    del frames
+    timed("pipeline", phase_pipeline, stack, main_run["feats"])
+    emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
     runs = {name: main_run[f"{path}_launches"][name] for path, name in (
         ("features", "glcm_fused"), ("texture", "glcm_window"))}
     runs["glcm_vote"] = sum(main_run[f"{p}_launches"]["glcm_vote"] for p in ("glcm", "tiles"))
     runs["glcm_volume"] = sum(main_run[f"{p}_launches"]["glcm_volume"]
                               for p in ("volume", "volume_glcm"))
+    runs["histogram"] = sum(h[f"histogram_{p}_launches"]["histogram"] for p in ("big", "stack4"))
     kernels = [
         {"name": "glcm_vote", "route": "cuda", "source": "src/repro_torch/csrc/glcm_vote.cu",
          "replaces": "src/repro/kernels/glcm_kernel.py:151",
@@ -737,6 +1040,13 @@ def main() -> int:
          "max_abs_err": vchk["volume_max_abs_err"], "ms": t["volume_ms"],
          "plain_ms": t["volume_plain_ms"], "bound_ms": t["volume_bound_ms"],
          "bound_by": t["volume_bound_by"], "library_ms": t["volume_library_ms"]},
+        {"name": "histogram", "route": "cuda", "source": "src/repro_torch/csrc/histogram.cu",
+         "replaces": "src/repro/kernels/histogram_kernel.py:37",
+         "launches": runs["histogram"],
+         "max_abs_err": max(h["histogram_big_max_abs_err"], h["histogram_stack4_max_abs_err"]),
+         "ms": h["histogram_big_ms"], "plain_ms": h["histogram_big_plain_ms"],
+         "bound_ms": h["histogram_big_bound_ms"], "bound_by": h["histogram_big_bound_by"],
+         "library_ms": h["histogram_big_library_ms"]},
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,15 +4,26 @@ A second package beside the JAX reference ``repro``; it imports torch and
 nothing of JAX or of ``repro``. The public entry points run on the card
 unless the caller passes ``device="cpu"``:
 
-    from repro_torch import glcm, glcm_features
+    from repro_torch import glcm, glcm_features, glcm_feature_stream
     F = glcm_features(stack, 32)                  # (B, 4, 14) on the card
+    for f in glcm_feature_stream(frames, 32, temporal_window=16):
+        ...                                       # rolling-window features
 
 Layout mirrors the reference: ``core`` (spec, plan, backends, schemes,
-quantize, haralick, glcm), ``kernels`` (CUDA kernel wrappers with their
-plain PyTorch versions, the nvcc build, offset tables) and ``data``
-(synthetic textures). CUDA sources live in ``csrc``.
+quantize, haralick, glcm, pipeline, stream_state, native, conflicts),
+``kernels`` (CUDA kernel wrappers with their plain PyTorch versions, the
+nvcc build, offset tables and oracles) and ``data`` (synthetic textures and
+videos). CUDA sources live in ``csrc``.
 """
 
-from repro_torch.core import GLCMSpec, compile_plan, glcm, glcm_features
+from repro_torch.core import (
+    GLCMSpec,
+    GLCMStream,
+    compile_plan,
+    glcm,
+    glcm_feature_stream,
+    glcm_features,
+)
 
-__all__ = ["GLCMSpec", "compile_plan", "glcm", "glcm_features"]
+__all__ = ["GLCMSpec", "GLCMStream", "compile_plan", "glcm", "glcm_feature_stream",
+           "glcm_features"]

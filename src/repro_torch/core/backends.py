@@ -29,10 +29,13 @@ Built-in strategies:
                  (``kernels.glcm_window``)
   "cuda_volume"  depth-slab CUDA volume kernel (``kernels.glcm_volume``),
                  ndim=3 only
+  "native"       NumPy ``bincount`` on the host (``core.native``); the plan
+                 calls its ``host_fn`` directly (``caps.host_native``)
 
 "auto" resolves per device by the reference's TPU rule: on CUDA
 ``cuda_volume`` for volumes, else ``cuda_fused`` for more than one pair and
-``cuda`` for one; on the CPU ``onehot``. The CUDA backends run on a CPU
+``cuda`` for one; on the CPU ``onehot``. "auto" never picks ``native``:
+only its name does. The CUDA backends run on a CPU
 tensor too — through their kernels' plain versions — which is how the CPU
 tests reach their plumbing.
 """
@@ -42,8 +45,10 @@ from __future__ import annotations
 import dataclasses
 from collections.abc import Callable
 
+import numpy as np
 import torch
 
+from repro_torch.core import native as _native
 from repro_torch.core.quantize import repeat_params
 from repro_torch.core.schemes import (
     extract_regions,
@@ -79,6 +84,8 @@ class Capabilities:
     volume_only: bool = False         # serves ONLY ndim=3 specs (implies
     #                                   volumetric; enforced at register())
     fused_quantize: bool = False      # accepts raw pixels + quant=(lo, span)
+    host_native: bool = False         # also exposes host_fn: NumPy counting
+    #                                   the plan calls outside PyTorch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +97,9 @@ class Backend:
     before any work; for region specs ``shape`` is the per-region batch it
     will see. ``region_compute(img_batch, spec, quant=None)`` (present iff
     ``caps.region_grid``) serves non-global specs natively, returning
-    (B, *grid, n_pairs, L, L).
+    (B, *grid, n_pairs, L, L). ``host_fn(stack_np, spec, quant)`` (present
+    iff ``caps.host_native``) counts a (B, *spatial) ndarray into an integer
+    count ndarray, regions included.
     """
 
     name: str
@@ -98,6 +107,7 @@ class Backend:
     caps: Capabilities = Capabilities()
     validate: Callable[[GLCMSpec, tuple[int, ...]], None] | None = None
     region_compute: Callable[..., torch.Tensor] | None = None
+    host_fn: Callable[..., np.ndarray] | None = None
 
 
 def supports_ndim(backend: Backend, ndim: int) -> bool:
@@ -154,6 +164,11 @@ def register(backend: Backend) -> Backend:
             f"backend {backend.name!r}: caps.volume_only requires "
             "caps.volumetric"
         )
+    if backend.caps.host_native != (backend.host_fn is not None):
+        raise ValueError(
+            f"backend {backend.name!r}: caps.host_native must match the "
+            "presence of host_fn"
+        )
     _REGISTRY[backend.name] = backend
     return backend
 
@@ -191,7 +206,8 @@ def resolve_scheme(
     fused kernel when a 2-D spec has more than one pair and the pair-stream
     kernel otherwise (the reference's TPU rule); on the CPU the one-hot
     scheme. ``require`` names :class:`Capabilities` fields the backend must
-    declare; "auto" then picks the first capable backend by name.
+    declare; "auto" then picks the first capable backend by name, leaving
+    out the host-native ones unless ``host_native`` is required.
     """
     if spec.scheme != "auto":
         get_backend(spec.scheme)  # existence check; capability check in plan
@@ -199,6 +215,8 @@ def resolve_scheme(
     if require:
         for name in available_backends():
             backend = _REGISTRY[name]
+            if backend.caps.host_native and "host_native" not in require:
+                continue
             if supports_ndim(backend, spec.ndim) and all(
                 getattr(backend.caps, cap) for cap in require
             ):
@@ -215,7 +233,7 @@ def resolve_scheme(
 
 
 # ---------------------------------------------------------------------------
-# The six built-in strategies
+# The seven built-in strategies
 # ---------------------------------------------------------------------------
 
 
@@ -303,6 +321,23 @@ def _cuda_volume_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch
     ).to(torch.float32)
 
 
+def _native_quant(quant):
+    """(lo, span) as NumPy for ``native.quantize_stack``."""
+    if quant is None:
+        return None
+    return tuple(q.cpu().numpy() if torch.is_tensor(q) else q for q in quant)
+
+
+def _native_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
+    # The registry contract for the host-native backend (the temporal
+    # delta and the region fallback come through here): NumPy counts of
+    # the stack, back on its device as float32. A batch plan calls host_fn
+    # directly instead.
+    q = _native.quantize_stack(img.cpu().numpy(), spec, _native_quant(quant))
+    counts = _native.counts_pairs(q, spec.levels, spec.offsets())
+    return torch.from_numpy(counts.astype(np.float32)).to(img.device)
+
+
 def _cuda_volume_validate(spec: GLCMSpec, shape: tuple[int, ...]) -> None:
     if spec.ndim != 3:
         raise ValueError(
@@ -335,6 +370,17 @@ register(
         compute=_blocked_compute,
         caps=Capabilities(volumetric=True),
         validate=_blocked_validate,
+    )
+)
+register(
+    Backend(
+        name="native",
+        compute=_native_compute,
+        caps=Capabilities(
+            multi_offset_fused=True, volumetric=True, fused_quantize=True,
+            host_native=True,
+        ),
+        host_fn=_native.native_counts,
     )
 )
 register(

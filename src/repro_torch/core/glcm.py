@@ -16,11 +16,11 @@ map), the region grid between the batch and the pair axes.
 raise RuntimeError; only ``device="cpu"`` runs on the CPU. Results are
 float32 tensors on the plan's device.
 
-Schemes: "scatter", "onehot", "blocked", "cuda" (pair-stream vote kernel),
-"cuda_fused" (fused multi-offset kernel; window kernel for regions),
-"cuda_volume" (depth-slab volume kernel) or "auto" — on CUDA "cuda_volume"
-for volumes, "cuda_fused" for several pairs and "cuda" for one; on the CPU
-"onehot".
+Schemes: "scatter", "onehot", "blocked", "native" (NumPy counting on the
+host), "cuda" (pair-stream vote kernel), "cuda_fused" (fused multi-offset
+kernel; window kernel for regions), "cuda_volume" (depth-slab volume
+kernel) or "auto" — on CUDA "cuda_volume" for volumes, "cuda_fused" for
+several pairs and "cuda" for one; on the CPU "onehot".
 """
 
 from __future__ import annotations
@@ -43,7 +43,9 @@ __all__ = [
     "VOLUME_PAIRS",
 ]
 
-Scheme = Literal["scatter", "onehot", "blocked", "cuda", "cuda_fused", "cuda_volume", "auto"]
+Scheme = Literal[
+    "scatter", "onehot", "blocked", "native", "cuda", "cuda_fused", "cuda_volume", "auto"
+]
 
 
 def _check_ndim(image, ndim: int) -> None:

@@ -14,9 +14,10 @@ against the input shape when the plan is compiled.
 device, validates the spec against the concrete shape, builds the program
 (quantize → backend vote counting → symmetric/normalize → optionally
 Haralick features) and caches the :class:`GLCMPlan` in a bounded LRU keyed
-by ``(spec, shape, features, require, device)``. PyTorch runs eagerly, so a
-plan is a Python callable, not a compiled program; the cache still saves the
-resolution and validation, and the stats fields match the reference's.
+by ``(spec, shape, features, require, device, temporal_window)``. PyTorch
+runs eagerly, so a plan is a Python callable, not a compiled program; the
+cache still saves the resolution and validation, and the stats fields match
+the reference's.
 
 Devices: ``device=None`` means the current CUDA device. Only an explicit
 ``device="cpu"`` runs on the CPU; asking for CUDA on a machine without a
@@ -31,11 +32,21 @@ the backend, which bins values where it consumes them (the fused kernel in
 registers). The provably-identity case (uint8, ``levels=256``, vrange
 (0, 255)) is a plain cast. "equalized" quantizes each image first.
 
+``temporal_window=w`` compiles an incremental temporal plan instead: the
+shape is one frame's (no batch axis) and the result is a
+:class:`~repro_torch.core.stream_state.GLCMStreamPlan` with ``init_state()``
+/ ``update(state, frame)`` / ``rolling(video)``, cached apart from batch
+plans. Its per-frame delta is this plan's own quantize→vote path on a unit
+batch, cast to int32.
+
+A ``caps.host_native`` backend ("native", picked only by name) counts on the
+host with NumPy; the symmetric/normalize/features tail then runs on the
+plan's device.
+
 Not in this package yet, and rejected with NotImplementedError naming the
-slice of the port that brings it: ``temporal_window=`` (temporal stream)
-and ``check="lint"`` (plan-contract analyzer). There is no autotuner yet,
-so "auto" never consults a stored winner; ``spec.batch_mode`` is accepted
-and ignored.
+slice of the port that brings it: ``check="lint"`` (plan-contract
+analyzer). There is no autotuner yet, so "auto" never consults a stored
+winner; ``spec.batch_mode`` is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -46,9 +57,11 @@ import math
 import threading
 from collections.abc import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import backends as _backends
+from repro_torch.core import native as _native
 from repro_torch.core.haralick import FEATURE_NAMES, haralick_features
 from repro_torch.core.quantize import (
     is_identity_quantize,
@@ -57,6 +70,7 @@ from repro_torch.core.quantize import (
     uniform_params,
 )
 from repro_torch.core.spec import GLCMSpec
+from repro_torch.core.stream_state import GLCMStreamPlan
 
 __all__ = [
     "GLCMPlan",
@@ -87,6 +101,7 @@ class GLCMPlan:
     fn: Callable[[torch.Tensor], torch.Tensor]
     grid: tuple[int, ...] = ()
     fused_quantize: bool = False   # quantization is binned inside the count
+    host_native: bool = False      # counts with NumPy on the host
 
     def __call__(self, img) -> torch.Tensor:
         return self.fn(img)
@@ -208,11 +223,14 @@ def compile_plan(
     (skipping the eigendecomposition when ``max_correlation_coefficient`` is
     not asked for). ``require`` names capability fields the backend must
     declare. ``device=None`` means CUDA (see :func:`resolve_device`).
+
+    ``temporal_window=w`` compiles an incremental temporal plan: ``shape``
+    is then the per-frame spatial shape (no batch axis; one plan per
+    stream) and the result is a :class:`GLCMStreamPlan`. Expiry subtracts
+    the ring-buffered delta of the frame leaving the ``w``-frame window, and
+    symmetric/normalize/Haralick apply lazily on the accumulated signed
+    int32 counts, bit-exact against a full recompute of the window.
     """
-    if temporal_window is not None:
-        raise NotImplementedError(
-            "temporal_window= plans come with the temporal-stream slice of the port"
-        )
     if check == "lint":
         raise NotImplementedError(
             'check="lint" comes with the plan-contract analyzer slice of the port'
@@ -222,6 +240,18 @@ def compile_plan(
     device = resolve_device(device)
     shape = tuple(int(s) for s in shape)
     nd = spec.ndim
+    if temporal_window is not None:
+        if not isinstance(temporal_window, int) or temporal_window < 1:
+            raise ValueError(
+                f"temporal_window must be a positive int or None, got {temporal_window!r}"
+            )
+        if len(shape) != nd:
+            raise ValueError(
+                f"temporal plans stream unbatched frames: expected a "
+                f"{'(H, W)' if nd == 2 else '(D, H, W)'} frame shape for an "
+                f"ndim={nd} spec, got {shape} (the time axis is the stream, "
+                f"not a shape dimension)"
+            )
     if len(shape) not in (nd, nd + 1):
         expect = ("(H, W) or (B, H, W)" if nd == 2
                   else "(D, H, W) or (B, D, H, W)")
@@ -230,7 +260,7 @@ def compile_plan(
         )
     require = tuple(require)
     features = _canonical_features(features)
-    key = (spec, shape, features, require, device)
+    key = (spec, shape, features, require, device, temporal_window)
     with _LOCK:
         plan = _CACHE.get(key)
         if plan is not None:
@@ -291,33 +321,75 @@ def compile_plan(
             mats = haralick_features(mats, select=select)
         return mats
 
-    def run(img) -> torch.Tensor:
+    def prepare(stack: torch.Tensor):
+        """(B, *spatial) on the device → what the backend counts: the RAW
+        stack plus per-image (lo, span) when quantization is fused (no
+        quantized image), else int32 levels."""
+        if fused:
+            if is_identity_quantize(stack.dtype, resolved.levels, vmin, vmax):
+                # The input already holds the levels: a cast, no binning.
+                return stack.to(torch.int32), None
+            return stack, uniform_params(stack, vmin=vmin, vmax=vmax, batched=True)
+        if quant is not None:
+            # Each image of a batch is quantized with its own range;
+            # regions share their image's range, never one of their own.
+            stack = torch.stack([quant(im) for im in stack])
+        return stack.to(torch.int32), None
+
+    def as_input(img) -> torch.Tensor:
         x = torch.as_tensor(img, device=device)
         if tuple(x.shape) != shape:
             raise ValueError(f"plan compiled for shape {shape}, got {tuple(x.shape)}")
-        stack = x if batched else x[None]
-        if fused:
-            if is_identity_quantize(x.dtype, resolved.levels, vmin, vmax):
-                # The input already holds the levels: a cast, no binning.
-                stack = stack.to(torch.int32)
-                qargs = None
-            else:
-                # RAW pixels plus per-image (lo, span); no quantized image.
-                qargs = uniform_params(stack, vmin=vmin, vmax=vmax, batched=True)
-        else:
-            if quant is not None:
-                # Each image of a batch is quantized with its own range;
-                # regions share their image's range, never one of their own.
-                stack = torch.stack([quant(im) for im in stack])
-            stack = stack.to(torch.int32)
-            qargs = None
+        return x
+
+    if temporal_window is not None:
+        # The per-frame vote delta is this plan's own quantize→vote path on
+        # a unit batch. Counts round-trip through int32: the backends'
+        # float32 counts are integral (exact below 2**24 per cell), and the
+        # rolling state must be signed, since expiry subtracts.
+        def delta_fn(frame: torch.Tensor) -> torch.Tensor:
+            stack, qargs = prepare(frame[None])
+            counts = _backends.compute_regions(backend, stack, resolved, quant=qargs)
+            return counts[0].to(torch.int32)
+
+        plan = GLCMStreamPlan(
+            spec=resolved, backend=backend, shape=shape, window=temporal_window,
+            features=features, delta_fn=delta_fn, tail_fn=tail, device=device, grid=grid,
+            fused_quantize=fused, host_native=backend.caps.host_native,
+        )
+        return _cache_put(key, plan)
+
+    def run(img) -> torch.Tensor:
+        x = as_input(img)
+        stack, qargs = prepare(x if batched else x[None])
         mats = _backends.compute_regions(backend, stack, resolved, quant=qargs)
         mats = mats.to(torch.float32)
         mats = tail(mats)
         return mats if batched else mats[0]
 
+    def run_host(img) -> torch.Tensor:
+        # NumPy counts on the host; only the tail runs on the plan's device.
+        x = img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
+        if tuple(x.shape) != shape:
+            raise ValueError(f"plan compiled for shape {shape}, got {tuple(x.shape)}")
+        stack = x if batched else x[None]
+        qargs = None
+        if fused:
+            identity = x.dtype == np.uint8 and is_identity_quantize(
+                torch.uint8, resolved.levels, vmin, vmax)
+            if not identity:  # else the values already are the levels
+                qargs = _native.uniform_params_np(stack, vmin, vmax)
+        elif quant is not None:
+            stack = torch.stack([quant(im) for im in torch.from_numpy(stack)]).numpy()
+        counts = backend.host_fn(stack, resolved, qargs)
+        mats = torch.from_numpy(np.asarray(counts, np.float32)).to(device)
+        mats = tail(mats)
+        return mats if batched else mats[0]
+
+    host = backend.caps.host_native
     plan = GLCMPlan(
         spec=resolved, backend=backend, shape=shape, features=features,
-        device=device, fn=run, grid=grid, fused_quantize=fused,
+        device=device, fn=run_host if host else run, grid=grid, fused_quantize=fused,
+        host_native=host,
     )
     return _cache_put(key, plan)

@@ -88,8 +88,8 @@ class GLCMSpec:
                 (d, θ) with θ ∈ {0, 45, 90, 135}; for ``ndim=3`` each is
                 (d, direction) with direction indexing the 13 unique 3-D
                 directions of ``kernels.ref.DIRECTIONS_3D``.
-    scheme      backend name ("scatter" | "onehot" | "blocked" | "cuda" |
-                "cuda_fused" | "cuda_volume")
+    scheme      backend name ("scatter" | "onehot" | "blocked" | "native" |
+                "cuda" | "cuda_fused" | "cuda_volume")
                 or "auto" (resolved at plan time from the plan's device and
                 the registry's capabilities — see ``core.backends``).
     quantize    pre-quantization mode (see QUANTIZE_MODES), applied per image.

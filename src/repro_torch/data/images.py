@@ -14,7 +14,15 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["smooth_texture", "random_texture", "smooth_volume", "random_volume", "PAPER_SIZES"]
+__all__ = [
+    "smooth_texture",
+    "random_texture",
+    "image_stream",
+    "texture_video",
+    "smooth_volume",
+    "random_volume",
+    "PAPER_SIZES",
+]
 
 PAPER_SIZES = (1024, 4096, 8192, 16384)
 
@@ -40,6 +48,44 @@ def random_texture(size: int, seed: int = 0) -> np.ndarray:
     """Fig 1(b) analogue: iid uniform gray levels, uint8."""
     rng = np.random.default_rng(seed)
     return rng.integers(0, 256, size=(size, size)).astype(np.uint8)
+
+
+def image_stream(kind: str, size: int, count: int, seed: int = 0):
+    """Yield ``count`` images of one regime (for the streamed pipeline)."""
+    gen = {"smooth": smooth_texture, "random": random_texture}[kind]
+    for i in range(count):
+        yield gen(size, seed=seed + i)
+
+
+def texture_video(
+    size: int,
+    frames: int,
+    *,
+    seed: int = 0,
+    shift: int = 3,
+    change_at: int | None = None,
+) -> np.ndarray:
+    """A (frames, size, size) uint8 synthetic video for the temporal
+    streaming workload: one texture panning ``shift`` pixels per frame
+    (high frame-to-frame correlation — the regime where an incremental
+    rolling-window GLCM pays off).
+
+    The scene is the Fig 1(a) smooth field; at frame ``change_at`` (if
+    given) it hard-cuts to the Fig 1(b) iid-noise regime, a scene change
+    that shows up as a spike in the rolling window's contrast/entropy trace.
+    """
+    if frames < 1:
+        raise ValueError("frames must be >= 1")
+    scenes = [smooth_texture(size, seed=seed)]
+    if change_at is not None:
+        if not 0 < change_at < frames:
+            raise ValueError(f"change_at must be in (0, {frames})")
+        scenes.append(random_texture(size, seed=seed + 1))
+    video = np.empty((frames, size, size), np.uint8)
+    for t in range(frames):
+        scene = scenes[-1] if change_at is not None and t >= change_at else scenes[0]
+        video[t] = np.roll(scene, t * shift, axis=1)
+    return video
 
 
 def _shape3(shape) -> tuple[int, int, int]:

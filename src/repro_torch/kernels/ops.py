@@ -4,9 +4,11 @@ Counterpart of ``repro.kernels.ops``:
 ``glcm_cuda`` ↔ ``glcm_pallas`` (pair planes, binning, pair-stream vote),
 ``glcm_cuda_multi`` ↔ ``glcm_pallas_multi`` (fused multi-offset image pass),
 ``glcm_cuda_volume`` ↔ ``glcm_pallas_volume`` (depth-slab volume pass) and
-``glcm_cuda_windowed`` ↔ ``glcm_pallas_windowed`` (one GLCM per window).
-On a CPU tensor the kernels' plain versions compute the counts; on a CUDA
-tensor the kernels do.
+``glcm_cuda_windowed`` ↔ ``glcm_pallas_windowed`` (one GLCM per window)
+and ``histogram`` ↔ ``histogram`` (exact level counts). On a CPU tensor
+the kernels' plain versions compute the counts; on a CUDA tensor the
+kernels do. ``onehot_count`` is plain PyTorch, as the reference's is plain
+``jnp``: no kernel stands behind it.
 """
 
 from __future__ import annotations
@@ -24,12 +26,15 @@ from repro_torch.kernels.glcm_kernel import (
     glcm_vote,
     glcm_window,
 )
+from repro_torch.kernels.histogram_kernel import histogram as _histogram
 
 __all__ = [
     "glcm_cuda",
     "glcm_cuda_multi",
     "glcm_cuda_volume",
     "glcm_cuda_windowed",
+    "histogram",
+    "onehot_count",
     "default_tile_h",
     "default_slab_d",
     "DEFAULT_CHUNK",
@@ -170,3 +175,35 @@ def glcm_cuda_windowed(
     offsets = tuple(_ref.glcm_offsets(d, t) for d, t in pairs)
     return glcm_window(x, levels=levels, offsets=offsets, region_shape=region_shape,
                        stride=stride, copies=copies, quant=quant)
+
+
+def histogram(
+    values: torch.Tensor,
+    levels: int,
+    *,
+    chunk: int = DEFAULT_CHUNK,
+    copies: int = DEFAULT_COPIES,
+) -> torch.Tensor:
+    """Exact (L,) int32 level counts of ``values`` (any shape) via the
+    histogram kernel; -1 pads and values outside [0, L) are not counted."""
+    return _histogram(values, levels=levels, chunk=chunk, copies=copies)
+
+
+def onehot_count(
+    indices: torch.Tensor,
+    num_classes: int,
+    weights: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Conflict-free (optionally weighted) class counting over the last axis.
+
+    The paper-derived primitive: instead of scatter-adding into a count
+    vector (serialised under contention), build the one-hot matrix and
+    reduce it. Shapes: indices (..., K) int → (..., C), float32 (the
+    weights' dtype when weights are given); an index outside [0, C) counts
+    nowhere.
+    """
+    idx = indices.to(torch.int32)
+    onehot = idx[..., None] == torch.arange(num_classes, dtype=torch.int32, device=idx.device)
+    if weights is not None:
+        return (onehot.to(weights.dtype) * weights[..., None]).sum(dim=-2)
+    return onehot.to(torch.float32).sum(dim=-2)

@@ -23,6 +23,8 @@ __all__ = [
     "glcm_offsets_3d",
     "pair_planes_nd",
     "glcm_reference_nd",
+    "histogram_reference",
+    "onehot_count_reference",
 ]
 
 # theta (degrees) -> (dy, dx) per paper Eq. (2)
@@ -123,3 +125,43 @@ def glcm_reference_nd(
     if normalize:
         glcm = glcm / glcm.sum().clamp_min(1)
     return glcm
+
+
+def histogram_reference(values: torch.Tensor, levels: int, dtype=torch.float32) -> torch.Tensor:
+    """Oracle for the histogram kernel (paper §II.A's 'image statistical
+    histogram' analogy): counts of each level in ``values``, cast to int32
+    as the kernel casts them (floats truncate toward zero).
+
+    Only values in [0, levels) count, as in the kernel. ``repro``'s oracle
+    scatters with JAX's wrapping indices instead, so there a -1 pad lands
+    in bin ``levels - 1``; this one follows the kernel it checks.
+    """
+    v = values.reshape(-1).to(torch.int32).to(torch.int64)
+    v = v[(v >= 0) & (v < levels)]
+    out = torch.zeros((levels,), dtype=dtype, device=values.device)
+    return out.index_add_(0, v, torch.ones(v.shape, dtype=dtype, device=values.device))
+
+
+def onehot_count_reference(
+    indices: torch.Tensor,
+    num_classes: int,
+    weights: torch.Tensor | None = None,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """Oracle for the conflict-free counting primitive ``ops.onehot_count``:
+    per-class (optionally weighted) counts over the last axis of
+    ``indices``, leading axes kept. Only indices in [0, num_classes) count,
+    as in the one-hot compare it checks (``repro``'s oracle wraps negative
+    indices instead)."""
+    idx = indices.to(torch.int32).to(torch.int64)
+    flat = idx.reshape(-1, idx.shape[-1])
+    if weights is None:
+        w = torch.ones(flat.shape, dtype=dtype, device=idx.device)
+    else:
+        w = weights.reshape(flat.shape).to(dtype)
+    keep = (flat >= 0) & (flat < num_classes)
+    rows = torch.arange(flat.shape[0], device=idx.device)[:, None].expand(flat.shape)
+    pos = (rows * num_classes + flat)[keep]
+    counts = torch.zeros(flat.shape[0] * num_classes, dtype=dtype, device=idx.device)
+    counts.index_add_(0, pos, w[keep])
+    return counts.reshape(idx.shape[:-1] + (num_classes,))

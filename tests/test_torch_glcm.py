@@ -151,7 +151,7 @@ def test_auto_resolves_per_device():
     assert tplan.compile_plan(many, (2, 9, 9), device="cpu").spec.scheme == "onehot"
     assert tplan.compile_plan(one, (9, 9), device="cpu").spec.scheme == "onehot"
     assert backends.available_backends() == (
-        "blocked", "cuda", "cuda_fused", "cuda_volume", "onehot", "scatter")
+        "blocked", "cuda", "cuda_fused", "cuda_volume", "native", "onehot", "scatter")
 
 
 def test_plan_cache_hits_and_misses():
@@ -193,8 +193,9 @@ def test_entry_points_default_to_cuda():
 
 def test_later_slices_raise_not_implemented():
     spec = GLCMSpec(levels=8)
-    with pytest.raises(NotImplementedError, match="temporal"):
-        tplan.compile_plan(spec, (9, 9), device="cpu", temporal_window=4)
+    # Temporal streams came with their slice: a stream plan compiles.
+    stream = tplan.compile_plan(spec, (9, 9), device="cpu", temporal_window=4)
+    assert stream.window == 4 and stream.shape == (9, 9)
     with pytest.raises(NotImplementedError, match="analyzer"):
         tplan.compile_plan(spec, (9, 9), device="cpu", check="lint")
     # Regions came with their slice: a tiles plan compiles, with its grid.

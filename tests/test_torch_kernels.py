@@ -221,12 +221,13 @@ def test_build_flags_keep_ieee_arithmetic():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-prec-div=true" in flags and "-ftz=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert set(build.KERNELS) == {"glcm_vote", "glcm_fused", "glcm_window", "glcm_volume"}
+    assert set(build.KERNELS) == {"glcm_vote", "glcm_fused", "glcm_window", "glcm_volume",
+                                  "histogram"}
     for name in build.KERNELS:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
         assert (build.CSRC / f"{name}.cu").exists()
-    for name in ("glcm_fused", "glcm_window", "glcm_volume"):
+    for name in ("glcm_fused", "glcm_window", "glcm_volume", "histogram"):
         assert build.CSRC / "glcm_common.cuh" in build.sources(name)
 
 

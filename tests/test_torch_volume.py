@@ -315,7 +315,7 @@ def test_register_consistency_checks(caps, kw, match):
 
 def test_volume_only_backends_and_registry():
     assert backends.available_backends() == (
-        "blocked", "cuda", "cuda_fused", "cuda_volume", "onehot", "scatter")
+        "blocked", "cuda", "cuda_fused", "cuda_volume", "native", "onehot", "scatter")
     vol_only = backends.get_backend("cuda_volume")
     assert backends.supports_ndim(vol_only, 3) and not backends.supports_ndim(vol_only, 2)
     assert set(dataclasses.asdict(backends.Capabilities())) <= set(
