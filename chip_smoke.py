@@ -7,13 +7,17 @@ Phases, each printing one JSON line:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch, CUDA.
 2. ``build``: compile every CUDA source of the package with nvcc for
-   sm_90a (in parallel) and print each kernel's registers and shared memory.
+   sm_90a (in parallel) and print each kernel's registers and shared memory,
+   and the launches glcm_fused and glcm_volume make on the main path at
+   L = 32 (blocks per SM, shared bytes, ring geometry, grid).
 3. ``kernel_check``: each kernel against its plain PyTorch version on the
-   card, exact equality, at L in {8, 32, 64, 128, 256}, with -1 padding,
-   out-of-range levels, a ragged height, dy == tile_h, an odd width and
-   scalar and per-image quantization; windows overlapping and tiled, with
-   dx < 0 and dy == rh - 1; volumes with a ragged depth, all 13 directions,
-   d = 2 and dz == slab_d.
+   card, exact equality, at L in {8, 32, 64, 128, 255, 256}, with -1
+   padding, out-of-range levels, a ragged height, dy == tile_h, an odd width
+   and scalar and per-image quantization; windows overlapping and tiled,
+   with dx < 0 and dy == rh - 1; volumes with a ragged depth, all 13
+   directions, d = 2 and dz == slab_d; and the marching kernels' edges:
+   uint8 input, a width past one strip, H < 1 + max dy, a depth of 1,
+   out-of-range levels on strip and ring edges, slices of a stack.
 4. ``main_path``: the entry points at the paper's sizes — glcm_features of
    an 8 x 4096 x 4096 float32 stack (4 smooth + 4 random textures) over
    PAPER_PAIRS at L = 32; glcm of one 16384 x 16384 smooth texture at
@@ -29,8 +33,10 @@ Phases, each printing one JSON line:
    the plain counts computed on the CPU, and the vote totals.
 6. ``timing``: CUDA-event times of each kernel, its plain version and
    ``torch.bincount`` of the pre-built linearised index (where it fits) at
-   the main-path shapes, the bound of each kernel, glcm_features images/s,
-   windows/s and voxels/s end to end, and the Haralick tail alone.
+   the main-path shapes (glcm_fused and glcm_volume also on the smooth and
+   the random half, and glcm_fused on the stack as uint8, with its peak
+   allocation), the bound of each kernel, glcm_features images/s, windows/s
+   and voxels/s end to end, and the Haralick tail alone.
 7. ``histogram``: ``kernels.histogram`` on the 16384² image binned to
    L = 32 (the contended case) and on the random stack[4] binned to
    L = 256, with launch counts, exact against the plain version and
@@ -90,6 +96,8 @@ from repro_torch.data.images import (  # noqa: E402
 )
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.glcm_kernel import (  # noqa: E402
+    KIND_BYTE,
+    KIND_FLOAT,
     glcm_fused,
     glcm_fused_plain,
     glcm_volume,
@@ -98,6 +106,7 @@ from repro_torch.kernels.glcm_kernel import (  # noqa: E402
     glcm_vote_plain,
     glcm_window,
     glcm_window_plain,
+    launch_plan,
 )
 from repro_torch.kernels.histogram_kernel import histogram, histogram_plain  # noqa: E402
 from repro_torch.kernels.ops import default_slab_d, default_tile_h  # noqa: E402
@@ -122,6 +131,7 @@ KERNELS = (glcm_vote, glcm_fused, glcm_window, glcm_volume, histogram)
 # The texture map (benchmarks/texture_map.py's geometry at the paper's size)
 # and the volumes of the main path.
 WINDOW, WINDOW_STRIDE, TILE = 32, 16, 256
+STACK_SHAPE = (8, 4096, 4096)  # 4 smooth + 4 random textures
 VOLUME_SHAPE = (256, 512, 512)
 VOLUME_DIRECTION = 7
 
@@ -202,7 +212,19 @@ def phase_build() -> None:
                if "Compiling entry function" in ln or "Used" in ln or "spill" in ln]
         for name, text in reports.items()
     }
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
+    # The launches the redesigned kernels make on the main path (L = 32):
+    # blocks per SM, shared memory, ring geometry, grid, registers.
+    offsets = tuple(glcm_offsets(d, t) for d, t in PAPER_PAIRS)
+    plans = {
+        "glcm_fused_float32": launch_plan("glcm_fused", STACK_SHAPE, offsets, levels=LEVELS,
+                                          split=default_tile_h(offsets), kind=KIND_FLOAT),
+        "glcm_fused_uint8": launch_plan("glcm_fused", STACK_SHAPE, offsets, levels=LEVELS,
+                                        split=default_tile_h(offsets), kind=KIND_BYTE),
+        "glcm_volume_float32": launch_plan("glcm_volume", (2,) + VOLUME_SHAPE, DIRECTIONS_3D,
+                                           levels=LEVELS, split=default_slab_d(DIRECTIONS_3D),
+                                           kind=KIND_FLOAT),
+    }
+    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas, "launch_plans_L32": plans})
 
 
 def _edge_values(rng, shape, lo: float, span: float, levels: int) -> np.ndarray:
@@ -215,8 +237,8 @@ def _edge_values(rng, shape, lo: float, span: float, levels: int) -> np.ndarray:
 
 def phase_kernel_check() -> None:
     rng = np.random.default_rng(1234)
-    cases = 0
-    for levels in (8, 32, 64, 128, 256):
+    cases = march_cases = 0
+    for levels in CHECK_LEVELS:
         # glcm_vote: -1 pads and values outside [0, L) on both sides.
         a = rng.integers(-3, levels + 3, size=(3, 200_003)).astype(np.int32)
         r = rng.integers(-3, levels + 3, size=(3, 200_003)).astype(np.int32)
@@ -255,11 +277,77 @@ def phase_kernel_check() -> None:
         require(torch.equal(got, want), f"glcm_fused scalar quant L={levels}")
         cases += 2
         cases += _check_window(rng, levels) + _check_volume(rng, levels)
+        march_cases += _check_march(rng, levels)
     hist_cases = _check_histogram(rng)
     torch.cuda.synchronize()
-    emit({"phase": "kernel_check", "cases": cases + hist_cases,
-          "levels": [8, 32, 64, 128, 256], "histogram_cases": hist_cases,
-          "histogram_levels": list(HISTOGRAM_LEVELS), "exact": True})
+    emit({"phase": "kernel_check", "cases": cases + march_cases + hist_cases,
+          "levels": list(CHECK_LEVELS), "march_edge_cases": march_cases,
+          "histogram_cases": hist_cases, "histogram_levels": list(HISTOGRAM_LEVELS),
+          "exact": True})
+
+
+# L = 255 is the largest L with uint8 ring levels (sentinel 255); L = 256
+# takes uint16 levels.
+CHECK_LEVELS = (8, 32, 64, 128, 255, 256)
+
+
+def _edge_levels(rng, shape, levels: int, strip: int = 4096) -> np.ndarray:
+    """int32 levels with values outside [0, L) on the first and last rows and
+    columns and on both sides of a strip boundary (column `strip`)."""
+    x = rng.integers(0, levels, size=shape).astype(np.int32)
+    x[..., 0], x[..., -1] = -1, levels + 5
+    x[..., 0, :], x[..., -1, :] = -7, levels
+    if shape[-1] > strip:
+        x[..., strip - 1], x[..., strip] = levels, -1
+    return x
+
+
+def _check_march(rng, levels: int) -> int:
+    """glcm_fused and glcm_volume at the edges of their marching rings:
+    uint8 raw input with per-image and scalar ranges; a width past one
+    4096-column strip that is not a multiple of 16 bytes; H < 1 + max dy;
+    out-of-range levels on the strip and ring edges; slices of a stack (a
+    non-zero storage offset, 16-byte aligned and not); a volume of depth 1
+    and dz == slab_d."""
+    cases = 0
+
+    def same(got, want, what):
+        nonlocal cases
+        require(torch.equal(got, want), f"{what} L={levels}")
+        cases += 1
+
+    offsets = tuple(glcm_offsets(d, t) for d, t in PAPER_PAIRS) + ((8, 3), (8, -7), (0, 5))
+    for h, w in ((3, 4129), (37, 513)):  # H = 3 < 1 + max dy = 9
+        u8 = torch.from_numpy(rng.integers(0, 256, size=(3, h, w), dtype=np.uint8)).to(DEV)
+        for quant in (uniform_params(u8, batched=True), (3.0, 200.0)):
+            same(glcm_fused(u8, levels=levels, offsets=offsets, quant=quant),
+                 glcm_fused_plain(u8, levels, offsets, quant=quant), f"fused uint8 {h}x{w}")
+        same(glcm_fused(u8[1:], levels=levels, offsets=offsets, quant=(3.0, 200.0)),
+             glcm_fused_plain(u8[1:], levels, offsets, quant=(3.0, 200.0)),
+             f"fused uint8 slice {h}x{w}")
+        ints = torch.from_numpy(_edge_levels(rng, (3, h, w), levels)).to(DEV)
+        for x in (ints, ints[1:]):
+            same(glcm_fused(x, levels=levels, offsets=offsets),
+                 glcm_fused_plain(x, levels, offsets), f"fused edge levels {h}x{w}")
+        flat = torch.from_numpy(_edge_values(rng, (2 * h * w + 3,), -3.5, 7.25, levels)).to(DEV)
+        odd = flat[3:].reshape(2, h, w)  # rows 4-byte aligned, not 16
+        same(glcm_fused(odd, levels=levels, offsets=offsets, quant=(-3.5, 7.25)),
+             glcm_fused_plain(odd, levels, offsets, quant=(-3.5, 7.25)), f"fused offset {h}x{w}")
+    extra = tuple(glcm_offsets_3d(2, k) for k in (4, 8, 12)) + ((8, 1, -2), (0, -3, 5))
+    for d, h, w in ((1, 9, 40), (19, 23, 29)):
+        u8 = torch.from_numpy(rng.integers(0, 256, size=(3, d, h, w), dtype=np.uint8)).to(DEV)
+        ints = torch.from_numpy(_edge_levels(rng, (3, d, h, w), levels)).to(DEV)
+        for offs in (DIRECTIONS_3D, extra):  # extra: dz == slab_d = 8
+            for quant in (uniform_params(u8, batched=True), (3.0, 200.0)):
+                same(glcm_volume(u8, levels=levels, offsets=offs, quant=quant),
+                     glcm_volume_plain(u8, levels, offs, quant=quant), f"volume uint8 d={d}")
+            same(glcm_volume(u8[1:], levels=levels, offsets=offs, quant=(3.0, 200.0)),
+                 glcm_volume_plain(u8[1:], levels, offs, quant=(3.0, 200.0)),
+                 f"volume uint8 slice d={d}")
+            for x in (ints, ints[1:]):
+                same(glcm_volume(x, levels=levels, offsets=offs),
+                     glcm_volume_plain(x, levels, offs), f"volume edge levels d={d}")
+    return cases
 
 
 HISTOGRAM_LEVELS = (1, 8, 32, 256, 4096, 65536)
@@ -483,6 +571,8 @@ def phase_timing(stack, big, chk) -> dict:
     t = {}
     t["fused_ms"] = cuda_ms(lambda: glcm_fused(stack, levels=LEVELS, offsets=offsets,
                                                tile_h=tile_h, quant=quant), reps=10)
+    t.update(_halves("fused", stack, quant, lambda x, q: glcm_fused(
+        x, levels=LEVELS, offsets=offsets, tile_h=tile_h, quant=q), reps=10))
     t["fused_plain_ms"] = cuda_ms(lambda: glcm_fused_plain(stack, LEVELS, offsets,
                                                            quant=quant), reps=3)
     t["vote_ms"] = cuda_ms(lambda: glcm_vote(a, r, levels=LEVELS, copies=1), reps=10)
@@ -512,15 +602,33 @@ def phase_timing(stack, big, chk) -> dict:
     t["features_images_per_s"] = reps * b / (time.perf_counter() - t0)
 
     # The same stack as uint8, as smooth_texture/random_texture give it: the
-    # fused path widens it to f32 before the kernel (range and launch).
+    # kernel reads it as it is. The range reduction is timed on its own.
     u8 = stack.to(torch.uint8)
     spec = GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform")
     require(torch.equal(compile_plan(spec, tuple(u8.shape))(u8),
                         compile_plan(spec, tuple(stack.shape))(stack)),
             "uint8 stack counts != float32 stack counts")
-    t["fused_uint8_ms"] = cuda_ms(
-        lambda: glcm_fused(u8, levels=LEVELS, offsets=offsets, tile_h=tile_h,
-                           quant=uniform_params(u8, batched=True)), reps=10)
+    q8 = uniform_params(u8, batched=True)
+    t["uniform_params_uint8_ms"] = cuda_ms(lambda: uniform_params(u8, batched=True), reps=10)
+    fused8 = lambda x, q: glcm_fused(x, levels=LEVELS, offsets=offsets,  # noqa: E731
+                                     tile_h=tile_h, quant=q)
+    require(torch.equal(fused8(u8, q8), glcm_fused(stack, levels=LEVELS, offsets=offsets,
+                                                  tile_h=tile_h, quant=quant)),
+            "glcm_fused on the uint8 stack != on the float32 stack")
+    # No float32 copy of the stack: the launch allocates less than one.
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    fused8(u8, q8)
+    torch.cuda.synchronize()
+    t["fused_uint8_peak_bytes"] = torch.cuda.max_memory_allocated(DEV) - before
+    t["stack_float32_bytes"] = u8.numel() * 4
+    require(t["fused_uint8_peak_bytes"] < t["stack_float32_bytes"],
+            f"glcm_fused on uint8 allocated {t['fused_uint8_peak_bytes']} bytes")
+    t["fused_uint8_ms"] = cuda_ms(lambda: fused8(u8, q8), reps=10)
+    t.update(_halves("fused_uint8", u8, q8, fused8, reps=10))
+    t["fused_uint8_bound_ms"], t["fused_uint8_bound_by"] = bound(
+        u8.numel() + b * 2 * 4 + b * len(offsets) * LEVELS**2 * 4, fused_ops)
     glcm_features(u8, LEVELS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -530,6 +638,17 @@ def phase_timing(stack, big, chk) -> dict:
     t["features_uint8_images_per_s"] = reps * b / (time.perf_counter() - t0)
     emit({"phase": "timing", **t})
     return t
+
+
+def _halves(name: str, x: torch.Tensor, quant, fn, reps: int) -> dict:
+    """Times ``fn(x[part], quant[part])`` on the smooth and the random half
+    of a main-path input (its first and second half along the batch)."""
+    half = x.shape[0] // 2
+    out = {}
+    for part, sl in (("smooth", slice(0, half)), ("random", slice(half, None))):
+        xs, qs = x[sl], (quant[0][sl], quant[1][sl])
+        out[f"{name}_{part}_ms"] = cuda_ms(lambda: fn(xs, qs), reps=reps)
+    return out
 
 
 def _features_err(got: torch.Tensor, counts: torch.Tensor, what: str) -> tuple[float, float]:
@@ -729,8 +848,10 @@ def phase_volume_timing(vol, chk) -> dict:
     offsets, slab_d, quant = chk["offsets"], chk["slab_d"], chk["quant"]
     b = vol.shape[0]
     t = {}
-    t["volume_ms"] = cuda_ms(lambda: glcm_volume(vol, levels=LEVELS, offsets=offsets,
-                                                 slab_d=slab_d, quant=quant), reps=5)
+    volume = lambda x, q: glcm_volume(x, levels=LEVELS, offsets=offsets,  # noqa: E731
+                                      slab_d=slab_d, quant=q)
+    t["volume_ms"] = cuda_ms(lambda: volume(vol, quant), reps=5)
+    t.update(_halves("volume", vol, quant, volume, reps=5))
     t["volume_plain_ms"] = cuda_ms(lambda: glcm_volume_plain(vol, LEVELS, offsets, quant=quant),
                                    reps=2)
     minlength = b * len(offsets) * LEVELS**2

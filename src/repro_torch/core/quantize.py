@@ -3,9 +3,9 @@
 Counterpart of ``repro.core.quantize``, bit-exact with it:
 
 * ``bin_values`` is the one affine-binning expression, with the same f32 op
-  order (subtract, divide, multiply, floor, clip, int32). The CUDA fused
-  kernel (``csrc/glcm_fused.cu``) bins in-register with the same order and
-  IEEE division, so fused and unfused plans count the same votes.
+  order (subtract, divide, multiply, floor, clip, int32). The CUDA image
+  kernels (``csrc/glcm_march.cuh`` and the others) bin with the same order
+  and IEEE division, so fused and unfused plans count the same votes.
 * ``uniform_params`` gives the (lo, span) a fused consumer needs: python
   floats when the range is pinned, per-image (B,) reductions otherwise;
   ``repeat_params`` repeats per-image ranges over each image's regions, so
@@ -83,18 +83,25 @@ def uniform_params(
     With both bounds pinned the result is python floats (no device work).
     Otherwise the range comes from the data in f32: scalars for one image,
     per-image (B,) tensors when ``batched``. ``span`` is floored at the
-    smallest normal f32 so a constant image bins to level 0.
+    smallest normal f32 so a constant image bins to level 0. Integer input
+    is reduced in its own dtype and only its extremes become f32 — the same
+    values, since rounding to f32 keeps order — with no widened copy of the
+    image.
     """
     if vmin is not None and vmax is not None:
         return float(vmin), max(float(vmax) - float(vmin), _TINY)
-    x = image.to(torch.float32)
+    integer = not (image.dtype.is_floating_point or image.dtype.is_complex
+                   or image.dtype == torch.bool)
+    x = image if integer else image.to(torch.float32)
     if batched:
         flat = x.reshape(x.shape[0], -1)
-        lo = flat.amin(dim=1) if vmin is None else _f32(vmin, x.device).expand(x.shape[0])
-        hi = flat.amax(dim=1) if vmax is None else _f32(vmax, x.device).expand(x.shape[0])
+        lo = (flat.amin(dim=1).to(torch.float32) if vmin is None
+              else _f32(vmin, x.device).expand(x.shape[0]))
+        hi = (flat.amax(dim=1).to(torch.float32) if vmax is None
+              else _f32(vmax, x.device).expand(x.shape[0]))
     else:
-        lo = x.amin() if vmin is None else _f32(vmin, x.device)
-        hi = x.amax() if vmax is None else _f32(vmax, x.device)
+        lo = x.amin().to(torch.float32) if vmin is None else _f32(vmin, x.device)
+        hi = x.amax().to(torch.float32) if vmax is None else _f32(vmax, x.device)
     span = (hi - lo).clamp_min(_TINY)
     return lo, span
 

@@ -8,139 +8,57 @@
 // and the reference the voxel at (z + dz, y + dy, x + dx). Offsets need
 // 0 <= dz (dy and dx may be negative: the dz = +1 directions of the 13).
 //
-// Input: int32 levels, or raw float32 plus a (B, 2) float32 (lo, span) per
-// volume, binned in registers by glcm::bin_level (the op order of
-// repro_torch.core.quantize.bin_values, IEEE division). The quantized
-// volume is never written.
+// Input: int32 levels, or raw float32 or uint8 values plus a (B, 2) float32
+// (lo, span) per volume, binned once per voxel by glcm::bin_level (the op
+// order of repro_torch.core.quantize.bin_values, IEEE division; uint8 is
+// read as it is and converted exactly). The quantized volume is never
+// written to device memory.
 //
-// Design: the fused image kernel (glcm_fused.cu) with a depth axis. The unit
-// of work is (depth slab of slab_d slices) x (tile of kTileRows rows); the
-// grid is (units, volume), flattened to one dimension with `per_volume`
-// blocks per volume, each walking the units of its volume with a stride.
-// A thread loads its voxel once and, for every offset, reads the partner
-// voxel straight from device memory with bounds checks in place of the TPU
-// kernel's padded next-slab halo and roll: z + dz < D, 0 <= y + dy < H,
-// 0 <= x + dx < W. Depth is not padded, so no padding ever reaches a vote.
-// Votes go to `copies` (R) private sets of n_off L x L sub-histograms in
-// shared memory (lane l uses copy l % R; sets n_off*L*L+1 words apart),
-// merged into the output with global atomicAdd at block exit; the wrapper
-// zeroes the output. slab_d only splits the work: it never changes the
-// counts.
+// What bounds it: the volume is read once (537 MB for two 256 x 512 x 512
+// float32 volumes, 0.16 ms at 3.35 TB/s). The work is 13 votes per voxel,
+// each a few integer operations and one shared-memory atomicAdd; on the
+// H100 the atomics and the instructions around them take the time, not the
+// bytes (PERF.md).
 //
-// What bounds it: the volume is read once from device memory (537 MB for
-// two 256 x 512 x 512 float32 volumes); partner reads hit L1/L2. Per voxel
-// it does up to 13 partner reads, 13 binnings and 13 shared-memory atomics,
-// which serialise where neighbouring voxels share a level (smooth volumes).
-//
-// Shared memory: 13 offsets x 32² x 4 B = 52 KiB per set at L = 32, above
-// the 48 KiB default, so the kernel is opted in with cudaFuncSetAttribute;
-// four sets fit in 227 KiB. One set is 208 KiB at L = 64. At L >= 128 not
-// even one set fits, and the kernel votes with global atomics straight into
-// the output.
+// Design (glcm_march.cuh): the first port read each partner voxel from
+// device memory and binned it again, 14 reads, 14 IEEE divisions and 13
+// atomics per voxel. Here a block owns a strip x row tile of each plane and
+// marches down the depth: the binned plane-tiles within max dz (with their
+// halo rows and columns) sit in a shared-memory ring, so each voxel is
+// loaded with 16-byte loads and binned once (a uint8 volume through a
+// 256-entry table), and the next plane is loaded into a spare slot while
+// the current one votes, with one barrier per plane. A thread votes a run of
+// 16 consecutive voxels from aligned shared loads, one shared atomic per
+// vote. At L = 32 a set of 13 sub-histograms is 52 KiB and the ring ~16
+// KiB, so three blocks fit on an SM; at L = 64 one set (208 KiB) still fits
+// beside the ring; at L >= 128 none does and the kernel votes with global
+// atomics. slab_d only bounds how finely the depth is split between blocks:
+// it never changes the counts.
 
 #include <cuda_runtime.h>
 
-#include "glcm_common.cuh"
+#include "glcm_march.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileRows = 8;
-constexpr int kMaxOffsets = 64;
+using glcm::march::kMaxOffsets;
 
-struct Offsets {
-  int n;
-  int dz[kMaxOffsets];
-  int dy[kMaxOffsets];
-  int dx[kMaxOffsets];
-};
-
-template <bool kQuant, bool kShared>
-__global__ void __launch_bounds__(kThreads)
-volume_kernel(const void* __restrict__ img, const float* __restrict__ quant,
-              int* __restrict__ out, int depth, int height, int width, int levels, int copies,
-              int slab_d, int per_volume, Offsets offs) {
-  extern __shared__ int hist[];
-  const int cells = levels * levels;
-  const int n_off = offs.n;
-  const int set_stride = n_off * cells + 1;
-  const int b = blockIdx.x / per_volume;
-  const int first = blockIdx.x - b * per_volume;
-  int* out_b = out + static_cast<long long>(b) * n_off * cells;
-
-  if (kShared) {
-    for (int i = threadIdx.x; i < copies * set_stride; i += blockDim.x) hist[i] = 0;
-    __syncthreads();
+// Validates the arguments and fills the offsets; false on a bad argument.
+bool offsets_of(int batch, int depth, int height, int width, int levels, int copies, int slab_d,
+                const int* dz, const int* dy, const int* dx, int n_off,
+                glcm::march::Offsets& offs) {
+  if (batch < 0 || depth < 0 || height < 0 || width < 0 || levels < 1 || levels > 65535 ||
+      copies < 1 || slab_d < 1 || n_off < 1 || n_off > kMaxOffsets) {
+    return false;
   }
-  int* mine = kShared ? hist + (threadIdx.x % 32 % copies) * set_stride : out_b;
-
-  float lo = 0.0f, span = 1.0f;
-  if (kQuant) {
-    lo = quant[2 * b];
-    span = quant[2 * b + 1];
+  offs.n = n_off;
+  for (int k = 0; k < n_off; ++k) {
+    if (dz[k] < 0) return false;
+    offs.dz[k] = dz[k];
+    offs.dy[k] = dy[k];
+    offs.dx[k] = dx[k];
   }
-  const long long plane = static_cast<long long>(height) * width;
-  const long long base = static_cast<long long>(b) * depth * plane;
-  const int row_tiles = (height + kTileRows - 1) / kTileRows;
-  const long long units =
-      static_cast<long long>((depth + slab_d - 1) / slab_d) * row_tiles;
-  for (long long u = first; u < units; u += per_volume) {
-    const int slab = static_cast<int>(u / row_tiles);
-    const int tile = static_cast<int>(u - static_cast<long long>(slab) * row_tiles);
-    const int z_end = min((slab + 1) * slab_d, depth);
-    const int y_end = min((tile + 1) * kTileRows, height);
-    for (int z = slab * slab_d; z < z_end; ++z) {
-      for (int y = tile * kTileRows; y < y_end; ++y) {
-        for (int x = threadIdx.x; x < width; x += blockDim.x) {
-          const long long i = base + z * plane + static_cast<long long>(y) * width + x;
-          const int a = glcm::level_at<kQuant>(img, i, lo, span, levels);
-          if (!glcm::votes(a, levels)) continue;
-          for (int k = 0; k < n_off; ++k) {
-            const int zz = z + offs.dz[k];
-            const int yy = y + offs.dy[k];
-            const int xx = x + offs.dx[k];
-            if (zz >= depth || yy < 0 || yy >= height || xx < 0 || xx >= width) continue;
-            const int r = glcm::level_at<kQuant>(
-                img, base + zz * plane + static_cast<long long>(yy) * width + xx, lo, span,
-                levels);
-            if (!glcm::votes(r, levels)) continue;
-            atomicAdd(mine + k * cells + r * levels + a, 1);
-          }
-        }
-      }
-    }
-  }
-
-  if (kShared) {
-    __syncthreads();
-    for (int c = threadIdx.x; c < n_off * cells; c += blockDim.x) {
-      int v = 0;
-      for (int k = 0; k < copies; ++k) v += hist[k * set_stride + c];
-      if (v) atomicAdd(out_b + c, v);
-    }
-  }
-}
-
-template <bool kQuant, bool kShared>
-int launch(const void* img, const float* quant, int* out, int batch, int depth, int height,
-           int width, int levels, int copies, int slab_d, const Offsets& offs, size_t smem,
-           cudaStream_t s) {
-  auto kernel = volume_kernel<kQuant, kShared>;
-  const cudaError_t e = glcm::allow_smem(kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (per_sm < 1) per_sm = 1;
-  const int sms = glcm::device_attr(cudaDevAttrMultiProcessorCount);
-  const long long units = static_cast<long long>((depth + slab_d - 1) / slab_d) *
-                          ((height + kTileRows - 1) / kTileRows);
-  long long per_volume = (static_cast<long long>(per_sm) * sms + batch - 1) / batch;
-  if (per_volume > units) per_volume = units;
-  if (per_volume * batch > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(per_volume * batch), kThreads, smem, s>>>(
-      img, quant, out, depth, height, width, levels, copies, slab_d,
-      static_cast<int>(per_volume), offs);
-  return static_cast<int>(cudaGetLastError());
+  return true;
 }
 
 }  // namespace
@@ -148,45 +66,42 @@ int launch(const void* img, const float* quant, int* out, int batch, int depth, 
 extern "C" {
 
 // Votes a (batch, depth, height, width) stack into out (batch, n_off,
-// levels, levels) int32, which the caller has zeroed. `img` holds int32
-// levels when `quant` is null, else float32 raw values binned with
-// quant[2b], quant[2b+1] = (lo, span) of volume b. Offsets need
+// levels, levels) int32, which the caller has zeroed. `kind` says what
+// `img` holds: 0 int32 levels (quant null), 1 float32 or 2 uint8 raw values
+// binned with quant[2b], quant[2b+1] = (lo, span) of volume b. Offsets need
 // 0 <= dz[k] <= slab_d, |dy[k]| < height and |dx[k]| < width (the wrapper
 // checks). Launches on `stream` and does not synchronise. Returns
-// cudaGetLastError() (0 = launched).
-int glcm_volume_launch(const void* img, const float* quant, int* out, int batch, int depth,
-                       int height, int width, int levels, int copies, int slab_d,
+// cudaGetLastError() (0 = launched); cudaErrorInvalidConfiguration when the
+// offsets' halo does not fit in shared memory.
+int glcm_volume_launch(const void* img, int kind, const float* quant, int* out, int batch,
+                       int depth, int height, int width, int levels, int copies, int slab_d,
                        const int* dz, const int* dy, const int* dx, int n_off, void* stream) {
-  if (batch < 0 || depth < 0 || height < 0 || width < 0 || levels < 1 || copies < 1 ||
-      slab_d < 1 || n_off < 1 || n_off > kMaxOffsets) {
+  glcm::march::Offsets offs;
+  if (!offsets_of(batch, depth, height, width, levels, copies, slab_d, dz, dy, dx, n_off, offs) ||
+      (kind == glcm::march::kLevels) != (quant == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0 || depth == 0 || height == 0 || width == 0) return 0;
   cudaGetLastError();  // start from a clean error state
-  Offsets offs;
-  offs.n = n_off;
-  for (int k = 0; k < n_off; ++k) {
-    offs.dz[k] = dz[k];
-    offs.dy[k] = dy[k];
-    offs.dx[k] = dx[k];
+  return glcm::march::run(img, kind, quant, out, batch, depth, height, width, levels, copies,
+                          slab_d, offs, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The launch glcm_volume_launch would make for these arguments, without
+// launching: info[0..11] = blocks per SM, shared bytes, shared
+// sub-histograms (1/0), copies, runs per row, rows per tile, planes per
+// step, ring slots, grid blocks, planes per block, registers, local bytes.
+int glcm_volume_plan(int kind, int batch, int depth, int height, int width, int levels,
+                     int copies, int slab_d, const int* dz, const int* dy, const int* dx,
+                     int n_off, int* info) {
+  glcm::march::Offsets offs;
+  if (!offsets_of(batch, depth, height, width, levels, copies, slab_d, dz, dy, dx, n_off, offs) ||
+      batch == 0 || depth == 0 || height == 0 || width == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long set_bytes = (static_cast<long long>(n_off) * levels * levels + 1) * 4;
-  const int max_smem = glcm::device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
-  const int fit = static_cast<int>(max_smem / set_bytes);
-  const bool q = quant != nullptr;
-  if (fit >= 1) {
-    const int r = copies < fit ? copies : fit;
-    const size_t smem = static_cast<size_t>(r * set_bytes);
-    return q ? launch<true, true>(img, quant, out, batch, depth, height, width, levels, r,
-                                  slab_d, offs, smem, s)
-             : launch<false, true>(img, quant, out, batch, depth, height, width, levels, r,
-                                   slab_d, offs, smem, s);
-  }
-  return q ? launch<true, false>(img, quant, out, batch, depth, height, width, levels, 1, slab_d,
-                                 offs, 0, s)
-           : launch<false, false>(img, quant, out, batch, depth, height, width, levels, 1,
-                                  slab_d, offs, 0, s);
+  cudaGetLastError();
+  return glcm::march::run(nullptr, kind, nullptr, nullptr, batch, depth, height, width, levels,
+                          copies, slab_d, offs, nullptr, info);
 }
 
 const char* glcm_volume_error_string(int code) {

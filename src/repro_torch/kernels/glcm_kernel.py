@@ -6,7 +6,7 @@ Counterparts of the TPU kernels of ``repro/kernels/glcm_kernel.py``:
     (B, N) int32 pair streams → (B, L, L) int32 counts
     (CUDA source: ``csrc/glcm_vote.cu``; plain version: ``glcm_vote_plain``)
 ``glcm_fused``  ← ``repro/kernels/glcm_kernel.py::glcm_fused_pallas``
-    (B, H, W) stack, int32 levels or raw f32 + per-image (lo, span)
+    (B, H, W) stack, int32 levels or raw f32 / uint8 + per-image (lo, span)
     → (B, n_off, L, L) int32 counts in one pass over the image
     (CUDA source: ``csrc/glcm_fused.cu``; plain version: ``glcm_fused_plain``)
 ``glcm_window`` ← ``glcm_window_pallas``
@@ -15,8 +15,8 @@ Counterparts of the TPU kernels of ``repro/kernels/glcm_kernel.py``:
     GLCM per window, pairs never crossing a window
     (CUDA source: ``csrc/glcm_window.cu``; plain version: ``glcm_window_plain``)
 ``glcm_volume`` ← ``glcm_volume_pallas``
-    (B, D, H, W) volumes → (B, n_off, L, L) int32 over (dz, dy, dx) offsets
-    in one pass, in depth slabs
+    (B, D, H, W) volumes, int32 levels or raw f32 / uint8 + per-volume
+    (lo, span) → (B, n_off, L, L) int32 over (dz, dy, dx) offsets in one pass
     (CUDA source: ``csrc/glcm_volume.cu``; plain version: ``glcm_volume_plain``)
 
 Each wrapper checks its arguments, then dispatches on the device of the
@@ -52,6 +52,7 @@ __all__ = [
     "DEFAULT_COPIES",
     "DEFAULT_SLAB_D",
     "MAX_OFFSETS",
+    "launch_plan",
 ]
 
 DEFAULT_CHUNK = 2048   # pair-stream slice a block votes per step
@@ -182,8 +183,25 @@ def glcm_fused_plain(
 ) -> torch.Tensor:
     """Plain version of ``glcm_fused``: (B, H, W) → (B, n_off, L, L) int32,
     a masked ``bincount`` over the pair planes of every offset, binned from
-    raw values when ``quant`` is given (the "scatter" scheme)."""
-    return glcm_scatter_batch(stack, levels, tuple(offsets), quant=quant)
+    raw values (float32, uint8 or any real dtype) when ``quant`` is given
+    (the "scatter" scheme)."""
+    return _pairless_zero(glcm_scatter_batch, stack, levels, tuple(offsets), quant)
+
+
+def _pairless_zero(count, stack, levels: int, offsets, quant) -> torch.Tensor:
+    """``count(stack, levels, offsets, quant=quant)``, with zero counts for
+    an offset that leaves no pair in the input (dy >= H or dz >= D, which
+    the kernels, like the reference's, accept up to tile_h or slab_d)."""
+    dims = stack.shape[1:]
+    fits = [all(abs(o) < n for o, n in zip(off, dims)) for off in offsets]
+    if all(fits):
+        return count(stack, levels, offsets, quant=quant)
+    out = torch.zeros((stack.shape[0], len(offsets), levels, levels), dtype=torch.int32,
+                      device=stack.device)
+    kept = tuple(off for off, f in zip(offsets, fits) if f)
+    if kept:
+        out[:, torch.tensor(fits, device=stack.device)] = count(stack, levels, kept, quant=quant)
+    return out
 
 
 def glcm_fused(
@@ -202,9 +220,10 @@ def glcm_fused(
     |dx| < W, as the reference kernel requires. Without ``quant`` the values
     are levels (cast to int32; one outside [0, L) does not vote). With
     ``quant=(lo, span)`` — python floats or per-image (B,) tensors — the
-    values are raw and each is binned in-register by the affine of
-    ``core.quantize.bin_values``; the quantized image is never written.
-    ``tile_h`` rows make one block's unit of work and ``copies`` is the
+    values are raw and each is binned once in the kernel by the affine of
+    ``core.quantize.bin_values``; the quantized image is never written, and
+    uint8 is read as it is (other dtypes as float32).
+    ``tile_h`` is the fewest rows a block marches and ``copies`` the
     paper's R; neither changes the counts.
     """
     if img.ndim not in (2, 3):
@@ -241,25 +260,61 @@ def _quant_block(quant, b: int, device) -> torch.Tensor:
     return torch.stack([lo, span], dim=1).contiguous()
 
 
+# What the image kernels read (``kind`` in csrc/glcm_march.cuh): int32
+# levels, or float32 or uint8 raw values binned in the kernel.
+KIND_LEVELS, KIND_FLOAT, KIND_BYTE = 0, 1, 2
+
+
+def _kernel_input(stack: torch.Tensor, quant) -> tuple[torch.Tensor, int]:
+    """The stack as the fused and volume kernels read it, and its kind:
+    levels as int32; raw uint8 as it is (no widened copy: the kernel
+    converts each value to float32 exactly, as ``bin_values`` does); any
+    other raw dtype as float32. A contiguous stack, a slice of one included,
+    is not copied."""
+    if quant is None:
+        return stack.to(torch.int32).contiguous(), KIND_LEVELS
+    if stack.dtype == torch.uint8:
+        return stack.contiguous(), KIND_BYTE
+    return stack.to(torch.float32).contiguous(), KIND_FLOAT
+
+
+def launch_plan(kernel: str, shape: tuple[int, ...], offsets, *, levels: int,
+                split: int, copies: int = 1, kind: int = KIND_FLOAT) -> dict:
+    """The launch ``glcm_fused`` (``kernel="glcm_fused"``, shape (B, H, W),
+    ``split`` = tile_h) or ``glcm_volume`` (shape (B, D, H, W), ``split`` =
+    slab_d) would make on the current card, without launching: blocks per
+    SM, shared bytes, the ring's geometry, the grid, registers. Needs the
+    card and builds the kernel."""
+    n_off = len(offsets)
+    cols = list(zip(*offsets))
+    arrays = [(ctypes.c_int * n_off)(*c) for c in cols]
+    info = (ctypes.c_int * 12)()
+    fn = _function(kernel, f"{kernel}_plan",
+                   [_I] * (len(shape) + 4) + [_P] * len(cols) + [_I, _P])
+    code = fn(kind, *shape, levels, copies, split, *(ctypes.addressof(a) for a in arrays),
+              n_off, ctypes.addressof(info))
+    _check_launch(kernel, code)
+    keys = ("blocks_per_sm", "smem_bytes", "shared_hist", "copies", "runs", "tile_rows",
+            "planes_per_step", "ring_slots", "grid", "planes_per_block", "registers",
+            "local_bytes")
+    return dict(zip(keys, info))
+
+
 def _launch_fused(stack, levels, offsets, tile_h, copies, quant) -> torch.Tensor:
     b, h, w = stack.shape
     if b > 65535:
         raise ValueError(f"glcm_fused takes at most 65535 images per launch, got {b}")
-    if quant is None:
-        x = stack.to(torch.int32).contiguous()
-        q = None
-    else:
-        x = stack.to(torch.float32).contiguous()
-        q = _quant_block(quant, b, stack.device)
+    x, kind = _kernel_input(stack, quant)
+    q = None if quant is None else _quant_block(quant, b, stack.device)
     n_off = len(offsets)
     out = torch.zeros((b, n_off, levels, levels), dtype=torch.int32, device=stack.device)
     dy = (ctypes.c_int * n_off)(*(o[0] for o in offsets))
     dx = (ctypes.c_int * n_off)(*(o[1] for o in offsets))
     fn = _function("glcm_fused", "glcm_fused_launch",
-                   [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P])
+                   [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P])
     with torch.cuda.device(stack.device):
         stream = torch.cuda.current_stream(stack.device).cuda_stream
-        code = fn(x.data_ptr(), None if q is None else q.data_ptr(), out.data_ptr(),
+        code = fn(x.data_ptr(), kind, None if q is None else q.data_ptr(), out.data_ptr(),
                   b, h, w, levels, copies, tile_h, ctypes.addressof(dy),
                   ctypes.addressof(dx), n_off, stream)
     _check_launch("glcm_fused", code)
@@ -306,7 +361,7 @@ def _windows(x: torch.Tensor, region_shape, stride) -> tuple[torch.Tensor, bool]
     return img.unfold(1, rh, sh).unfold(2, rw, sw), x.ndim == 3
 
 
-def _counts_by_offset(stack, levels: int, offsets, quant) -> torch.Tensor:
+def _counts_by_offset(stack, levels: int, offsets, *, quant) -> torch.Tensor:
     """(N, *spatial) → (N, n_off, L, L) int32: per offset, one masked
     ``bincount`` over ``n·L² + ref·L + assoc``, so that the index of one
     offset, not of all, is in memory at a time."""
@@ -333,7 +388,7 @@ def glcm_window_plain(
     flat = windows.reshape(-1, rh, rw)
     if quant is not None:
         quant = repeat_params(quant, flat.shape[0])  # per-image → per-window
-    out = _counts_by_offset(flat, levels, offsets, quant)
+    out = _counts_by_offset(flat, levels, offsets, quant=quant)
     out = out.reshape(b, gh, gw, len(offsets), levels, levels)
     return out if batched else out[0]
 
@@ -422,8 +477,9 @@ def glcm_volume_plain(
 ) -> torch.Tensor:
     """Plain version of ``glcm_volume``: (B, D, H, W) → (B, n_off, L, L)
     int32, a masked ``bincount`` over (volume, ref, assoc) per offset,
-    binned from raw values when ``quant`` is given."""
-    return _counts_by_offset(vol, levels, tuple(offsets), quant)
+    binned from raw values (float32, uint8 or any real dtype) when
+    ``quant`` is given."""
+    return _pairless_zero(_counts_by_offset, vol, levels, tuple(offsets), quant)
 
 
 def glcm_volume(
@@ -442,9 +498,10 @@ def glcm_volume(
     |dy| < H and |dx| < W, as the reference kernel requires (dy and dx may
     be negative). Without ``quant`` the values are levels (cast to int32;
     one outside [0, L) does not vote); with ``quant=(lo, span)`` — python
-    floats or per-volume (B,) tensors — they are raw and binned in
-    registers. ``slab_d`` depth slices make a block's unit of work and
-    ``copies`` is the paper's R; neither changes the counts.
+    floats or per-volume (B,) tensors — they are raw and binned once in the
+    kernel, uint8 read as it is (other dtypes as float32). ``slab_d`` is the
+    fewest depth slices a block marches and ``copies`` the paper's R;
+    neither changes the counts.
     """
     if vol.ndim not in (3, 4):
         raise ValueError(f"expected (D, H, W) or (B, D, H, W) volume, got {tuple(vol.shape)}")
@@ -474,22 +531,18 @@ glcm_volume.launches = 0
 
 def _launch_volume(stack, levels, offsets, slab_d, copies, quant) -> torch.Tensor:
     b, d, h, w = stack.shape
-    if quant is None:
-        x = stack.to(torch.int32).contiguous()
-        q = None
-    else:
-        x = stack.to(torch.float32).contiguous()
-        q = _quant_block(quant, b, stack.device)
+    x, kind = _kernel_input(stack, quant)
+    q = None if quant is None else _quant_block(quant, b, stack.device)
     n_off = len(offsets)
     out = torch.zeros((b, n_off, levels, levels), dtype=torch.int32, device=stack.device)
     dz = (ctypes.c_int * n_off)(*(o[0] for o in offsets))
     dy = (ctypes.c_int * n_off)(*(o[1] for o in offsets))
     dx = (ctypes.c_int * n_off)(*(o[2] for o in offsets))
     fn = _function("glcm_volume", "glcm_volume_launch",
-                   [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P])
+                   [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P])
     with torch.cuda.device(stack.device):
         stream = torch.cuda.current_stream(stack.device).cuda_stream
-        code = fn(x.data_ptr(), None if q is None else q.data_ptr(), out.data_ptr(),
+        code = fn(x.data_ptr(), kind, None if q is None else q.data_ptr(), out.data_ptr(),
                   b, d, h, w, levels, copies, slab_d, ctypes.addressof(dz),
                   ctypes.addressof(dy), ctypes.addressof(dx), n_off, stream)
     _check_launch("glcm_volume", code)

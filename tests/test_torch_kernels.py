@@ -15,7 +15,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.glcm import PAPER_PAIRS, glcm_features
+from repro_torch.core.plan import compile_plan
 from repro_torch.core.quantize import uniform_params
+from repro_torch.core.spec import GLCMSpec
+from repro_torch.data.images import random_texture, smooth_texture
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.glcm_kernel import (
     glcm_fused,
@@ -27,6 +31,8 @@ from repro_torch.kernels.glcm_kernel import (
 try:  # the reference needs JAX, which a machine with a card may not have
     import jax.numpy as jnp
 
+    from repro.core.plan import compile_plan as jax_compile_plan
+    from repro.core.spec import GLCMSpec as JaxSpec
     from repro.kernels import ops as jops
     from repro.kernels.glcm_kernel import glcm_fused_pallas, glcm_vote_pallas
 except ImportError:
@@ -125,6 +131,65 @@ def test_fused_plain_equals_pallas_quant(levels, per_image):
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
         glcm_fused_plain(torch.from_numpy(img), levels, offsets, quant=tq).numpy(), want)
+
+
+@pytest.mark.parametrize("levels", [2, 8, 32, 256])
+@pytest.mark.parametrize("per_image", [False, True])
+def test_fused_uint8_equals_float32_and_pallas(levels, per_image):
+    """uint8 raw images, as the kernel reads them without a float32 copy,
+    count as their float32 values do, in the plain version and the
+    reference kernel."""
+    _need_reference()
+    rng = np.random.default_rng(levels + 7)
+    u8 = rng.integers(0, 256, size=(3, 67, 61)).astype(np.uint8)
+    u8[1, :20] = 17  # a flat band
+    offsets = PAPER_OFFSETS + ((8, 3),)
+    t8, t32 = torch.from_numpy(u8), torch.from_numpy(u8.astype(np.float32))
+    if per_image:
+        tq = uniform_params(t8, batched=True)
+        jquant = (jnp.asarray(tq[0].numpy()), jnp.asarray(tq[1].numpy()))
+    else:
+        tq = jquant = (3.0, 200.0)
+    want = np.asarray(glcm_fused_pallas(jnp.asarray(u8.astype(np.float32)), levels=levels,
+                                        offsets=offsets, tile_h=8, interpret=True, quant=jquant))
+    for x in (t8, t32):
+        np.testing.assert_array_equal(glcm_fused_plain(x, levels, offsets, quant=tq).numpy(), want)
+        got = glcm_fused(x, levels=levels, offsets=offsets, tile_h=8, quant=tq)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("h", [1, 3, 8])
+def test_fused_offsets_past_the_height(h):
+    """dy >= H (allowed up to tile_h) leaves no pair: those offsets count
+    zero, as in the reference; the others still count."""
+    _need_reference()
+    rng = np.random.default_rng(h)
+    img = rng.integers(-1, 9, size=(2, h, 21)).astype(np.int32)
+    offsets = ((0, 1), (1, -1), (4, 2), (8, -3))
+    want = np.asarray(glcm_fused_pallas(jnp.asarray(img), levels=8, offsets=offsets, tile_h=8,
+                                        interpret=True))
+    got = glcm_fused(torch.from_numpy(img), levels=8, offsets=offsets, tile_h=8)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_uint8_entry_points_equal_float32_and_reference(batched):
+    """glcm_features' path on uint8 images (the generators' own dtype):
+    counts equal the float32 images' and the reference's; features equal
+    the float32 images' exactly."""
+    _need_reference()
+    u8 = np.stack([smooth_texture(64, seed=2), random_texture(64, seed=2)])
+    if not batched:
+        u8 = u8[0]
+    f32 = u8.astype(np.float32)
+    jspec = JaxSpec(levels=32, pairs=PAPER_PAIRS, quantize="uniform")
+    want = np.asarray(jax_compile_plan(jspec, f32.shape)(jnp.asarray(f32)))
+    spec = GLCMSpec(levels=32, pairs=PAPER_PAIRS, quantize="uniform")
+    for x in (u8, f32):
+        got = compile_plan(spec, x.shape, device="cpu")(torch.from_numpy(x))
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(glcm_features(u8, 32, device="cpu").numpy(),
+                                  glcm_features(f32, 32, device="cpu").numpy())
 
 
 def test_fused_unbatched():
@@ -281,3 +346,35 @@ def test_kernels_equal_plain_on_card(levels):
     for quant in (uniform_params(raw, batched=True), (-3.5, 7.25)):
         got = glcm_fused(raw, levels=levels, offsets=offsets, tile_h=8, quant=quant)
         assert torch.equal(got, glcm_fused_plain(raw, levels, offsets, quant=quant))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [32, 255, 256])
+def test_fused_march_edges_on_card(levels):
+    """The marching kernel's edges on the card: uint8 input with per-image
+    and scalar ranges, a width past one 4096-column strip that is not a
+    multiple of 16 bytes, H < 1 + max dy, out-of-range levels on the strip
+    edges and slices of a stack (16-byte aligned and not)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(levels)
+    offsets = PAPER_OFFSETS + ((8, 3), (8, -7))
+    before = glcm_fused.launches
+    for h, w in ((3, 4129), (37, 513)):
+        u8 = torch.from_numpy(rng.integers(0, 256, size=(3, h, w)).astype(np.uint8)).to(dev)
+        for quant in (uniform_params(u8, batched=True), (3.0, 200.0)):
+            got = glcm_fused(u8, levels=levels, offsets=offsets, quant=quant)
+            assert torch.equal(got, glcm_fused_plain(u8, levels, offsets, quant=quant))
+        ints = rng.integers(0, levels, size=(3, h, w)).astype(np.int32)
+        ints[..., 0], ints[..., -1], ints[..., 0, :] = -1, levels + 3, levels
+        ints[..., 4095 % w], ints[..., 4096 % w] = levels, -2
+        ints = torch.from_numpy(ints).to(dev)
+        for x in (ints, ints[1:]):
+            assert torch.equal(glcm_fused(x, levels=levels, offsets=offsets),
+                               glcm_fused_plain(x, levels, offsets))
+        flat = torch.from_numpy(_raw_images(rng, 1, 1, 2 * h * w + 3, levels)[0, 0]).to(dev)
+        odd = flat[3:].reshape(2, h, w)
+        got = glcm_fused(odd, levels=levels, offsets=offsets, quant=(0.0, 255.0))
+        assert torch.equal(got, glcm_fused_plain(odd, levels, offsets, quant=(0.0, 255.0)))
+    assert glcm_fused.launches == before + 10

@@ -60,6 +60,32 @@ def test_uniform_params_bit_exact(vmin, vmax, batched):
             np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.int32])
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("vmin,vmax", [(None, None), (3.0, None), (None, 200.0)])
+def test_uniform_params_integer_input_unchanged(dtype, batched, vmin, vmax):
+    """Integer input is reduced in its own dtype, with no float32 copy of
+    the image: (lo, span) are the same as those of the float32 reduction it
+    replaces, and the reference's."""
+    rng = np.random.default_rng(5)
+    info = np.iinfo(dtype)
+    x = rng.integers(max(int(info.min), -40000), min(int(info.max), 70000) + 1,
+                     size=(3, 17, 13)).astype(dtype)
+    if dtype == np.int32:
+        x[0, 0, 0] = 2**30 + 1  # beyond the integers float32 holds exactly
+    x[1] = 4  # a constant image: span floors at the smallest normal f32
+    if not batched:
+        x = x[0]
+    got = tq.uniform_params(torch.from_numpy(x), vmin=vmin, vmax=vmax, batched=batched)
+    old = tq.uniform_params(torch.from_numpy(x.astype(np.float32)), vmin=vmin, vmax=vmax,
+                            batched=batched)
+    want = jq.uniform_params(jnp.asarray(x), vmin=vmin, vmax=vmax, batched=batched)
+    for g, o, w in zip(got, old, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == tuple(o.shape)
+        np.testing.assert_array_equal(g.numpy(), o.numpy())
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 def test_constant_image_span_floor():
     x = np.full((5, 5), 3.0, np.float32)
     lo, span = tq.uniform_params(torch.from_numpy(x))

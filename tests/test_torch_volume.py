@@ -122,6 +122,64 @@ def test_volume_plain_equals_pallas_quant(levels, per_volume):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("levels", [2, 8, 32, 256])
+@pytest.mark.parametrize("per_volume", [False, True])
+def test_volume_uint8_equals_float32_and_pallas(levels, per_volume):
+    """uint8 raw volumes, as the kernel reads them without a float32 copy,
+    count as their float32 values do, in the plain version and the
+    reference kernel."""
+    rng = np.random.default_rng(levels + 3)
+    u8 = rng.integers(0, 256, size=(2, 11, 9, 13)).astype(np.uint8)
+    u8[1, :4] = 200  # a flat slab
+    t8, t32 = torch.from_numpy(u8), torch.from_numpy(u8.astype(np.float32))
+    if per_volume:
+        tq = uniform_params(t8, batched=True)
+        jq = (jnp.asarray(tq[0].numpy()), jnp.asarray(tq[1].numpy()))
+    else:
+        tq = jq = (3.0, 200.0)
+    want = np.asarray(glcm_volume_pallas(jnp.asarray(u8.astype(np.float32)), levels=levels,
+                                         offsets=DIRECTIONS_3D, interpret=True, quant=jq))
+    for x in (t8, t32):
+        np.testing.assert_array_equal(glcm_volume_plain(x, levels, DIRECTIONS_3D, quant=tq).numpy(),
+                                      want)
+        got = glcm_volume(x, levels=levels, offsets=DIRECTIONS_3D, quant=tq)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("offsets,slab_d", [(DIRECTIONS_3D, 8), (((1, 0, 0), (0, 1, -1)), 1),
+                                            (((2, 1, 1), (0, 0, 3)), 2)])
+def test_volume_of_depth_one(offsets, slab_d):
+    """A volume of depth 1: offsets with dz >= D leave no pair and count
+    zero, as in the reference; in-plane offsets still count."""
+    rng = np.random.default_rng(slab_d)
+    vol = rng.integers(-1, 9, size=(2, 1, 7, 11)).astype(np.int32)
+    want = np.asarray(glcm_volume_pallas(jnp.asarray(vol), levels=8, offsets=offsets,
+                                         slab_d=slab_d, interpret=True))
+    got = glcm_volume(torch.from_numpy(vol), levels=8, offsets=offsets, slab_d=slab_d)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_volume_uint8_entry_points_equal_float32_and_reference(batched):
+    """The volume path end to end on uint8 (the generators' own dtype):
+    counts equal the float32 volume's and the reference's; features equal
+    the float32 volume's exactly."""
+    u8 = np.stack([timages.smooth_volume((11, 9, 13), seed=4),
+                   timages.random_volume((11, 9, 13), seed=4)])
+    if not batched:
+        u8 = u8[0]
+    f32 = u8.astype(np.float32)
+    jspec = JaxSpec(levels=32, pairs=VOLUME_PAIRS, quantize="uniform", ndim=3)
+    want = np.asarray(jax_compile_plan(jspec, f32.shape)(jnp.asarray(f32)))
+    spec = GLCMSpec.from_dict(dataclasses.asdict(jspec))
+    for x in (u8, f32):
+        got = tplan.compile_plan(spec, x.shape, device="cpu")(torch.from_numpy(x))
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        glcm_features(u8, 32, VOLUME_PAIRS, ndim=3, device="cpu").numpy(),
+        glcm_features(f32, 32, VOLUME_PAIRS, ndim=3, device="cpu").numpy())
+
+
 def test_volume_unbatched_and_orientation():
     # (dz, dy, dx) = (1, -1, 0): the reference of (z, y, x) is (z+1, y-1, x);
     # out[ref, assoc], a level outside [0, L) drops its pair.
@@ -353,3 +411,30 @@ def test_volume_kernel_equals_plain_on_card(levels):
             got = glcm_volume(raw, levels=levels, offsets=offsets, slab_d=slab_d, quant=quant)
             assert torch.equal(got, glcm_volume_plain(raw, levels, offsets, quant=quant))
     assert glcm_volume.launches == before + 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [32, 255, 256])
+def test_volume_march_edges_on_card(levels):
+    """The marching kernel's edges on the card: uint8 input with per-volume
+    and scalar ranges, a depth of 1, dz == slab_d, out-of-range levels on
+    the ring's edges and a slice of a stack."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(levels)
+    extra = ((8, 1, -2), (0, -3, 5), (2, 2, 2))
+    before = glcm_volume.launches
+    for shape in ((1, 9, 40), (19, 23, 29)):
+        u8 = torch.from_numpy(rng.integers(0, 256, size=(3,) + shape).astype(np.uint8)).to(dev)
+        ints = rng.integers(0, levels, size=(3,) + shape).astype(np.int32)
+        ints[..., 0], ints[..., -1], ints[..., 0, :] = -1, levels + 3, levels
+        ints = torch.from_numpy(ints).to(dev)
+        for offsets in (DIRECTIONS_3D, extra):
+            for quant in (uniform_params(u8, batched=True), (3.0, 200.0)):
+                got = glcm_volume(u8, levels=levels, offsets=offsets, quant=quant)
+                assert torch.equal(got, glcm_volume_plain(u8, levels, offsets, quant=quant))
+            for x in (ints, ints[1:]):
+                got = glcm_volume(x, levels=levels, offsets=offsets)
+                assert torch.equal(got, glcm_volume_plain(x, levels, offsets))
+    assert glcm_volume.launches == before + 16
