@@ -8,13 +8,16 @@ Phases, each printing one JSON line:
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch, CUDA.
 2. ``build``: compile every CUDA source of the package with nvcc for
    sm_90a (in parallel) and print each kernel's registers and shared memory,
-   and the launches glcm_fused and glcm_volume make on the main path at
-   L = 32 (blocks per SM, shared bytes, ring geometry, grid).
+   and the launches glcm_fused, glcm_volume and glcm_window make on the main
+   path at L = 32 (blocks per SM, shared bytes, ring geometry or staged
+   path, grid).
 3. ``kernel_check``: each kernel against its plain PyTorch version on the
    card, exact equality, at L in {8, 32, 64, 128, 255, 256}, with -1
    padding, out-of-range levels, a ragged height, dy == tile_h, an odd width
    and scalar and per-image quantization; windows overlapping and tiled,
-   with dx < 0 and dy == rh - 1; volumes with a ragged depth, all 13
+   with dx < 0, |dx| == rw - 1 and dy == rh - 1, a grid row that leaves a
+   run short, uint8 input with per-image and scalar ranges, slices and
+   patch grids; volumes with a ragged depth, all 13
    directions, d = 2 and dz == slab_d; and the marching kernels' edges:
    uint8 input, a width past one strip, H < 1 + max dy, a depth of 1,
    out-of-range levels on strip and ring edges, slices of a stack.
@@ -35,6 +38,8 @@ Phases, each printing one JSON line:
    ``torch.bincount`` of the pre-built linearised index (where it fits) at
    the main-path shapes (glcm_fused and glcm_volume also on the smooth and
    the random half, and glcm_fused on the stack as uint8, with its peak
+   allocation; glcm_window on the smooth and the random texture, each as
+   float32 and as its uint8 original, with the uint8 launch's peak
    allocation), the bound of each kernel, glcm_features images/s, windows/s
    and voxels/s end to end, and the Haralick tail alone.
 7. ``histogram``: ``kernels.histogram`` on the 16384² image binned to
@@ -50,8 +55,9 @@ Phases, each printing one JSON line:
    recompute of a 16-frame window in one batched call.
 9. ``texture_stream``: the texture map (32² windows at stride 16) as a
    counts-only temporal stream with an 8-frame ring (8.5 GB) over the same
-   frames: one ``glcm_window`` per frame, exact at two steps, the per-step
-   latency and the peak device memory.
+   frames: one ``glcm_window`` per frame, each uint8 frame read as it is
+   (one launch on a frame allocates only its counts), exact at two steps,
+   the per-step latency, the peak device memory and a step's own peak.
 10. ``pipeline``: ``glcm_feature_stream`` over 32 float32 4096² host images
     (the 8 of the stack, 4 times) at prefetch 1 and 2 and batch size 1 and
     8: side-stream copies from pinned buffers, features against
@@ -224,6 +230,10 @@ def phase_build() -> None:
                                            levels=LEVELS, split=default_slab_d(DIRECTIONS_3D),
                                            kind=KIND_FLOAT),
     }
+    for name, kind in (("float32", KIND_FLOAT), ("uint8", KIND_BYTE)):
+        plans[f"glcm_window_{name}"] = launch_plan(
+            "glcm_window", (1,) + STACK_SHAPE[1:], offsets, levels=LEVELS, region_shape=WINDOW,
+            stride=WINDOW_STRIDE, kind=kind)
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas, "launch_plans_L32": plans})
 
 
@@ -278,6 +288,7 @@ def phase_kernel_check() -> None:
         cases += 2
         cases += _check_window(rng, levels) + _check_volume(rng, levels)
         march_cases += _check_march(rng, levels)
+    cases += _check_window_odd_slots(rng)
     hist_cases = _check_histogram(rng)
     torch.cuda.synchronize()
     emit({"phase": "kernel_check", "cases": cases + march_cases + hist_cases,
@@ -393,34 +404,80 @@ def _check_histogram(rng) -> int:
 
 def _check_window(rng, levels: int) -> int:
     """glcm_window against its plain version: overlapping windows with a
-    ragged edge and tiles, dy == rh - 1 and dx < 0, out-of-range levels,
-    scalar and per-image quantization, and an extracted patch grid."""
+    ragged edge and tiles, a grid row of 17 windows (a full staged run and
+    a short one), dy == rh - 1, dx < 0 and |dx| == rw - 1, out-of-range
+    levels, float32 and uint8 input with scalar and per-image quantization,
+    slices of the batch, and extracted patch grids (int32, uint8)."""
     cases = 0
-    offsets = tuple(glcm_offsets(d, t) for d, t in PAPER_PAIRS) + ((15, 3), (0, -11), (7, -5))
-    h, w = 45, 39  # (45 - 16) % 5 and (39 - 12) % 7 are not 0: edge windows drop
-    ints = torch.from_numpy(
-        rng.integers(-2, levels + 2, size=(2, h, w)).astype(np.int32)).to(DEV)
-    raw = torch.from_numpy(np.stack([_edge_values(rng, (h, w), lo, sp, levels)
-                                     for lo, sp in ((0.0, 255.0), (-3.5, 7.25))])).to(DEV)
-    for region, stride in (((16, 12), (5, 7)), ((16, 12), None)):
-        kw = dict(region_shape=region, stride=stride)
-        want = glcm_window_plain(ints, levels, offsets, **kw)
-        for copies in (1, 3):
-            got = glcm_window(ints, levels=levels, offsets=offsets, copies=copies, **kw)
-            require(torch.equal(got, want), f"glcm_window int L={levels} {region}/{stride} "
-                                            f"R={copies}")
-            cases += 1
-        for quant in (uniform_params(raw, batched=True), (-3.5, 7.25)):
-            want = glcm_window_plain(raw, levels, offsets, quant=quant, **kw)
-            got = glcm_window(raw, levels=levels, offsets=offsets, quant=quant, **kw)
-            require(torch.equal(got, want), f"glcm_window quant L={levels} {region}/{stride}")
-            cases += 1
-    patches = extract_regions(ints, (16, 12), (5, 7))
-    got = glcm_window(patches, levels=levels, offsets=offsets)
-    require(torch.equal(got, glcm_window_plain(ints, levels, offsets, region_shape=(16, 12),
-                                               stride=(5, 7))),
-            f"glcm_window patch grid L={levels}")
-    return cases + 1
+
+    def same(got, want, what):
+        nonlocal cases
+        require(torch.equal(got, want), f"glcm_window {what} L={levels}")
+        cases += 1
+
+    offsets = tuple(glcm_offsets(d, t) for d, t in PAPER_PAIRS) + (
+        (15, 3), (0, -11), (7, -5), (2, 11))
+    for h, w in ((45, 39), (45, 124)):  # (45 - 16) % 5 and (39 - 12) % 7 are not 0
+        ints = torch.from_numpy(
+            rng.integers(-2, levels + 2, size=(3, h, w)).astype(np.int32)).to(DEV)
+        raw = torch.from_numpy(np.stack([_edge_values(rng, (h, w), lo, sp, levels) for lo, sp
+                                         in ((0.0, 255.0), (-3.5, 7.25), (1.0, 3.0))])).to(DEV)
+        u8 = torch.from_numpy(rng.integers(0, 256, size=(3, h, w), dtype=np.uint8)).to(DEV)
+        for region, stride in (((16, 12), (5, 7)), ((16, 12), None)):
+            kw = dict(region_shape=region, stride=stride)
+            want = glcm_window_plain(ints, levels, offsets, **kw)
+            for copies in (1, 3):
+                same(glcm_window(ints, levels=levels, offsets=offsets, copies=copies, **kw),
+                     want, f"int {h}x{w} {region}/{stride} R={copies}")
+            same(glcm_window(ints[1:], levels=levels, offsets=offsets, **kw), want[1:],
+                 f"int slice {h}x{w} {region}/{stride}")
+            for x in (raw, u8):
+                for quant in (uniform_params(x, batched=True), (-3.5, 7.25)):
+                    same(glcm_window(x, levels=levels, offsets=offsets, quant=quant, **kw),
+                         glcm_window_plain(x, levels, offsets, quant=quant, **kw),
+                         f"{x.dtype} quant {h}x{w} {region}/{stride}")
+            same(glcm_window(u8[1:], levels=levels, offsets=offsets, quant=(3.0, 200.0), **kw),
+                 glcm_window_plain(u8[1:], levels, offsets, quant=(3.0, 200.0), **kw),
+                 f"uint8 slice {h}x{w} {region}/{stride}")
+        patches = extract_regions(ints, (16, 12), (5, 7))
+        same(glcm_window(patches, levels=levels, offsets=offsets),
+             glcm_window_plain(ints, levels, offsets, region_shape=(16, 12), stride=(5, 7)),
+             f"patch grid {h}x{w}")
+        q8 = uniform_params(u8, batched=True)
+        same(glcm_window(extract_regions(u8, (16, 12), (5, 7)), levels=levels, offsets=offsets,
+                         quant=q8),
+             glcm_window_plain(u8, levels, offsets, region_shape=(16, 12), stride=(5, 7),
+                               quant=q8), f"uint8 patch grid {h}x{w}")
+    return cases
+
+
+def _check_window_odd_slots(rng) -> int:
+    """glcm_window against its plain version at odd L, where a slot of
+    n_off L x L int32 is whole 16-byte units (staged path) only when n_off
+    is a multiple of 4, and is otherwise stored by the direct path:
+    L in {3, 5, 7} with 2 to 5 offsets, overlapping windows and tiles,
+    int32 levels, float32 and uint8 input."""
+    cases = 0
+    offsets = ((0, 1), (1, -1), (15, 3), (2, -11), (0, 11))
+    for levels in (3, 5, 7):
+        ints = torch.from_numpy(
+            rng.integers(-1, levels + 2, size=(3, 45, 39)).astype(np.int32)).to(DEV)
+        u8 = torch.from_numpy(rng.integers(0, 256, size=(3, 45, 39), dtype=np.uint8)).to(DEV)
+        raw = u8.to(torch.float32) * 0.37 - 5.0
+        for n_off in (2, 3, 4, 5):
+            for region, stride in (((16, 12), (5, 7)), ((16, 12), None)):
+                kw = dict(region_shape=region, stride=stride)
+                for x in (ints, raw, u8):
+                    quant = None if x is ints else uniform_params(x, batched=True)
+                    for copies in (1, 2):
+                        got = glcm_window(x, levels=levels, offsets=offsets[:n_off],
+                                          quant=quant, copies=copies, **kw)
+                        want = glcm_window_plain(x, levels, offsets[:n_off], quant=quant, **kw)
+                        require(torch.equal(got, want),
+                                f"glcm_window {x.dtype} L={levels} n_off={n_off} "
+                                f"{region}/{stride} R={copies}")
+                        cases += 1
+    return cases
 
 
 def _check_volume(rng, levels: int) -> int:
@@ -791,6 +848,38 @@ def phase_texture_timing(stack, chk) -> dict:
                                                  quant=quant, **kw), reps=10)
     t["window_plain_ms"] = cuda_ms(lambda: glcm_window_plain(img, LEVELS, offsets,
                                                              quant=quant, **kw), reps=3)
+    # The same image as its uint8 original (smooth_texture's own dtype), read
+    # as it is: the same range, so the same counts, and a launch that
+    # allocates nothing but its output.
+    u8 = img.to(torch.uint8)
+    q8 = uniform_params(u8)
+    window8 = lambda x, q: glcm_window(x, levels=LEVELS, offsets=offsets,  # noqa: E731
+                                       quant=q, **kw)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    counts8 = window8(u8, q8)
+    torch.cuda.synchronize()
+    t["window_uint8_peak_bytes"] = torch.cuda.max_memory_allocated(DEV) - before
+    t["window_out_bytes"] = counts8.numel() * 4
+    require(t["window_uint8_peak_bytes"] - t["window_out_bytes"] < 65536,
+            f"glcm_window on uint8 allocated {t['window_uint8_peak_bytes']} bytes beside "
+            f"its {t['window_out_bytes']}-byte output")
+    plain8 = glcm_window_plain(u8, LEVELS, offsets, quant=q8, **kw)
+    t["window_uint8_max_abs_err"] = max_abs_err(counts8, plain8)
+    require(t["window_uint8_max_abs_err"] == 0, "glcm_window on uint8 differs from plain")
+    require(torch.equal(counts8, chk["counts"]), "glcm_window uint8 counts != float32 counts")
+    del counts8, plain8
+    t["window_uint8_ms"] = cuda_ms(lambda: window8(u8, q8), reps=10)
+    t["window_uint8_plain_ms"] = cuda_ms(lambda: glcm_window_plain(u8, LEVELS, offsets,
+                                                                   quant=q8, **kw), reps=3)
+    # The random texture (stack[4]), float32 and uint8: the kernel's time on
+    # both kinds of texture.
+    rnd = stack[4]
+    rnd8 = rnd.to(torch.uint8)
+    qr, qr8 = uniform_params(rnd), uniform_params(rnd8)
+    t["window_random_ms"] = cuda_ms(lambda: window8(rnd, qr), reps=10)
+    t["window_uint8_random_ms"] = cuda_ms(lambda: window8(rnd8, qr8), reps=10)
     # torch.bincount of the linearised (window, k, ref, assoc) index, built
     # outside the timed region.
     windows = img.unfold(0, WINDOW, WINDOW_STRIDE).unfold(1, WINDOW, WINDOW_STRIDE)
@@ -811,6 +900,8 @@ def phase_texture_timing(stack, chk) -> dict:
     del pos
     nbytes = img.numel() * 4 + 2 * 4 + minlength * 4
     t["window_bound_ms"], t["window_bound_by"] = bound(nbytes, 5 * img.numel() + votes)
+    t["window_uint8_bound_ms"], t["window_uint8_bound_by"] = bound(
+        nbytes - img.numel() * 3, 5 * img.numel() + votes)
 
     # End to end, and the Haralick tail alone on the same counts.
     texture = lambda: glcm_features(img, LEVELS, region="window", region_shape=WINDOW,  # noqa: E731
@@ -995,6 +1086,20 @@ def phase_texture_stream(frames_dev) -> dict:
     offsets = tuple(glcm_offsets(d, t) for d, t in PAPER_PAIRS)
     kw = dict(region_shape=(WINDOW, WINDOW), stride=(WINDOW_STRIDE, WINDOW_STRIDE))
     out = {}
+    # The frames are uint8; one window launch on a frame reads it as it is
+    # and allocates its counts and nothing else (no float32 copy).
+    require(frames_dev.dtype == torch.uint8, f"video frames are {frames_dev.dtype}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    one = glcm_window(frames_dev[0], levels=LEVELS, offsets=offsets, quant=(0.0, 255.0), **kw)
+    torch.cuda.synchronize()
+    out["texture_stream_launch_peak_bytes"] = torch.cuda.max_memory_allocated(DEV) - before
+    out["texture_stream_counts_bytes"] = one.numel() * 4
+    require(out["texture_stream_launch_peak_bytes"] - one.numel() * 4 < 65536,
+            f"glcm_window on a uint8 frame allocated {out['texture_stream_launch_peak_bytes']}"
+            f" bytes beside its {one.numel() * 4}-byte counts")
+    del one
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(DEV)
     base = torch.cuda.memory_allocated(DEV)  # the peak is the stream's own
@@ -1006,8 +1111,12 @@ def phase_texture_stream(frames_dev) -> dict:
     checked = (TEXTURE_WINDOW - 1, VIDEO_CHANGE + 4)
     times = []
     reset_launches()
+    step_peak_at = TEXTURE_WINDOW + 1  # a steady step after the first peak is read
     for t, frame in enumerate(frames_dev):
         torch.cuda.synchronize()
+        if t == step_peak_at:
+            torch.cuda.reset_peak_memory_stats(DEV)
+            step_base = torch.cuda.memory_allocated(DEV)
         t0 = time.perf_counter()
         state, counts = plan.update(state, frame)
         torch.cuda.synchronize()
@@ -1015,6 +1124,9 @@ def phase_texture_stream(frames_dev) -> dict:
         del counts
         if t == checked[0]:  # the ring is full: the steady state's peak
             out["texture_stream_peak_bytes"] = torch.cuda.max_memory_allocated(DEV) - base
+        if t == step_peak_at:  # what one step allocates above the state
+            out["texture_stream_step_peak_bytes"] = (torch.cuda.max_memory_allocated(DEV)
+                                                     - step_base)
         if t in checked:
             want = torch.zeros_like(state.counts, dtype=torch.int64)
             for f in frames_dev[max(0, t + 1 - TEXTURE_WINDOW): t + 1]:
@@ -1124,7 +1236,7 @@ def main() -> int:
     frames = torch.from_numpy(texture_video(4096, VIDEO_FRAMES, change_at=VIDEO_CHANGE)).to(DEV)
     emit({"phase_seconds": "video", "seconds": time.perf_counter() - t0})
     timed("temporal", phase_temporal, frames)
-    timed("texture_stream", phase_texture_stream, frames)
+    ts = timed("texture_stream", phase_texture_stream, frames)
     del frames
     timed("pipeline", phase_pipeline, stack, main_run["feats"])
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
@@ -1154,6 +1266,15 @@ def main() -> int:
          "max_abs_err": tchk["window_max_abs_err"], "ms": t["window_ms"],
          "plain_ms": t["window_plain_ms"], "bound_ms": t["window_bound_ms"],
          "bound_by": t["window_bound_by"], "library_ms": t["window_library_ms"]},
+        # The same kernel on uint8 input (read as it is): the texture stream's
+        # frames; its library call is torch.bincount of the same index.
+        {"name": "glcm_window_uint8", "route": "cuda",
+         "source": "src/repro_torch/csrc/glcm_window.cu",
+         "replaces": "src/repro/kernels/glcm_kernel.py:299",
+         "launches": ts["texture_stream_launches"]["glcm_window"],
+         "max_abs_err": t["window_uint8_max_abs_err"], "ms": t["window_uint8_ms"],
+         "plain_ms": t["window_uint8_plain_ms"], "bound_ms": t["window_uint8_bound_ms"],
+         "bound_by": t["window_uint8_bound_by"], "library_ms": t["window_library_ms"]},
         {"name": "glcm_volume", "route": "cuda",
          "source": "src/repro_torch/csrc/glcm_volume.cu",
          "replaces": "src/repro/kernels/glcm_kernel.py:440",

@@ -11,8 +11,9 @@ Counterparts of the TPU kernels of ``repro/kernels/glcm_kernel.py``:
     (CUDA source: ``csrc/glcm_fused.cu``; plain version: ``glcm_fused_plain``)
 ``glcm_window`` ← ``glcm_window_pallas``
     windows of a (B, H, W) image (read in place) or an extracted
-    (B, gh, gw, rh, rw) patch grid → (B, gh, gw, n_off, L, L) int32, one
-    GLCM per window, pairs never crossing a window
+    (B, gh, gw, rh, rw) patch grid, int32 levels or raw f32 / uint8 +
+    per-image (lo, span) → (B, gh, gw, n_off, L, L) int32, one GLCM per
+    window, pairs never crossing a window
     (CUDA source: ``csrc/glcm_window.cu``; plain version: ``glcm_window_plain``)
 ``glcm_volume`` ← ``glcm_volume_pallas``
     (B, D, H, W) volumes, int32 levels or raw f32 / uint8 + per-volume
@@ -266,8 +267,8 @@ KIND_LEVELS, KIND_FLOAT, KIND_BYTE = 0, 1, 2
 
 
 def _kernel_input(stack: torch.Tensor, quant) -> tuple[torch.Tensor, int]:
-    """The stack as the fused and volume kernels read it, and its kind:
-    levels as int32; raw uint8 as it is (no widened copy: the kernel
+    """The input as the image kernels (fused, window, volume) read it, and
+    its kind: levels as int32; raw uint8 as it is (no widened copy: the kernel
     converts each value to float32 exactly, as ``bin_values`` does); any
     other raw dtype as float32. A contiguous stack, a slice of one included,
     is not copied."""
@@ -279,25 +280,40 @@ def _kernel_input(stack: torch.Tensor, quant) -> tuple[torch.Tensor, int]:
 
 
 def launch_plan(kernel: str, shape: tuple[int, ...], offsets, *, levels: int,
-                split: int, copies: int = 1, kind: int = KIND_FLOAT) -> dict:
-    """The launch ``glcm_fused`` (``kernel="glcm_fused"``, shape (B, H, W),
-    ``split`` = tile_h) or ``glcm_volume`` (shape (B, D, H, W), ``split`` =
-    slab_d) would make on the current card, without launching: blocks per
-    SM, shared bytes, the ring's geometry, the grid, registers. Needs the
-    card and builds the kernel."""
+                split: int | None = None, region_shape=None, stride=None, copies: int = 1,
+                kind: int = KIND_FLOAT) -> dict:
+    """The launch an image kernel would make for a contiguous input of
+    ``shape`` on the current card, without launching. ``glcm_fused``: shape
+    (B, H, W), ``split`` = tile_h; ``glcm_volume``: shape (B, D, H, W),
+    ``split`` = slab_d — blocks per SM, shared bytes, the ring's geometry,
+    the grid, registers. ``glcm_window``: shape (B, H, W) with
+    ``region_shape`` and ``stride``, or a (B, gh, gw, rh, rw) patch grid —
+    the path (staged, or direct into shared sets or with global atomics),
+    blocks per SM, shared bytes, copies, windows per run, grid, registers.
+    Needs the card and builds the kernel."""
     n_off = len(offsets)
     cols = list(zip(*offsets))
     arrays = [(ctypes.c_int * n_off)(*c) for c in cols]
     info = (ctypes.c_int * 12)()
-    fn = _function(kernel, f"{kernel}_plan",
-                   [_I] * (len(shape) + 4) + [_P] * len(cols) + [_I, _P])
-    code = fn(kind, *shape, levels, copies, split, *(ctypes.addressof(a) for a in arrays),
-              n_off, ctypes.addressof(info))
+    if kernel == "glcm_window":
+        windows, _ = _windows(torch.empty(shape, device="meta"), region_shape, stride)
+        argtypes = [_I] * 6 + [_LL] * 4 + [_I, _I]
+        args = (kind, *windows.shape, *windows.stride()[:4], levels, copies)
+        keys = ("path", "blocks_per_sm", "smem_bytes", "copies", "windows_per_run", "grid",
+                "registers", "local_bytes")
+    else:
+        argtypes = [_I] * (len(shape) + 4)
+        args = (kind, *shape, levels, copies, split)
+        keys = ("blocks_per_sm", "smem_bytes", "shared_hist", "copies", "runs", "tile_rows",
+                "planes_per_step", "ring_slots", "grid", "planes_per_block", "registers",
+                "local_bytes")
+    fn = _function(kernel, f"{kernel}_plan", argtypes + [_P] * len(cols) + [_I, _P])
+    code = fn(*args, *(ctypes.addressof(a) for a in arrays), n_off, ctypes.addressof(info))
     _check_launch(kernel, code)
-    keys = ("blocks_per_sm", "smem_bytes", "shared_hist", "copies", "runs", "tile_rows",
-            "planes_per_step", "ring_slots", "grid", "planes_per_block", "registers",
-            "local_bytes")
-    return dict(zip(keys, info))
+    plan = dict(zip(keys, info))
+    if kernel == "glcm_window":
+        plan["path"] = ("staged", "direct_shared", "direct_global")[plan["path"]]
+    return plan
 
 
 def _launch_fused(stack, levels, offsets, tile_h, copies, quant) -> torch.Tensor:
@@ -414,7 +430,8 @@ def glcm_window(
     ``quant`` the values are levels (cast to int32; one outside [0, L) does
     not vote). With ``quant=(lo, span)`` — python floats or per-image (B,)
     tensors — the values are raw and every window bins with its image's
-    range. ``copies`` is the paper's R; it never changes the counts.
+    range, uint8 read as it is (other dtypes as float32). ``copies`` is the
+    paper's R; it never changes the counts.
     """
     assert_levels(levels)
     offsets = tuple((int(dy), int(dx)) for dy, dx in offsets)
@@ -438,7 +455,8 @@ glcm_window.launches = 0
 
 
 def _launch_window(x, region_shape, stride, levels, offsets, copies, quant) -> torch.Tensor:
-    src = x.to(torch.float32 if quant is not None else torch.int32).contiguous()
+    # uint8 is read as it is and int32 levels as they are; no widened copy.
+    src, kind = _kernel_input(x, quant)
     windows, _ = _windows(src, region_shape, stride)
     b, gh, gw, rh, rw = windows.shape
     s_img, s_row, s_col, s_y, s_x = windows.stride()
@@ -446,17 +464,17 @@ def _launch_window(x, region_shape, stride, levels, offsets, copies, quant) -> t
         raise ValueError(f"window rows must be contiguous, got strides {windows.stride()}")
     q = None if quant is None else _quant_block(quant, b, src.device)
     n_off = len(offsets)
-    # Every count is written by the kernel (each block owns its window's slot).
+    # Every count is written by the kernel (each window's slot is stored whole).
     out = torch.empty((b, gh, gw, n_off, levels, levels), dtype=torch.int32,
                       device=src.device)
     dy = (ctypes.c_int * n_off)(*(o[0] for o in offsets))
     dx = (ctypes.c_int * n_off)(*(o[1] for o in offsets))
     fn = _function("glcm_window", "glcm_window_launch",
-                   [_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _I, _I, _P, _P, _I, _P])
+                   [_P, _I, _P, _P] + [_I] * 5 + [_LL] * 4 + [_I, _I, _P, _P, _I, _P])
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        code = fn(windows.data_ptr(), None if q is None else q.data_ptr(), out.data_ptr(),
-                  b, gh, gw, rh, rw, s_img, s_row, s_col, s_y, levels, copies,
+        code = fn(windows.data_ptr(), kind, None if q is None else q.data_ptr(),
+                  out.data_ptr(), b, gh, gw, rh, rw, s_img, s_row, s_col, s_y, levels, copies,
                   ctypes.addressof(dy), ctypes.addressof(dx), n_off, stream)
     _check_launch("glcm_window", code)
     glcm_window.launches += 1
