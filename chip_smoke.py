@@ -63,6 +63,25 @@ Phases, each printing one JSON line:
     8: side-stream copies from pinned buffers, features against
     ``glcm_features``, images/s and the overlap gain, and the times of one
     host memcpy into pinned memory and of one host-to-device copy.
+11. ``serve`` (serve-mixed-4096): one ``GLCMEngine`` on the card serving
+    four workloads in the mix of ``benchmarks/serve_load.py`` (55 / 25 / 15
+    / 5 %): 4096² uint8 images (PAPER_PAIRS features → glcm_fused), the
+    same images equalized (one pair, raw counts → glcm_vote), 1024² float32
+    crops as texture maps (32² windows at stride 16 → glcm_window) and the
+    256 x 512 x 512 volumes (13 directions → glcm_volume). After a warm-up,
+    a zero-gap prefix of 64 requests calibrates the mean service time; 96
+    requests of a seeded bursty trace then replay on a warp clock at 50 %
+    offered load, with a deadline and without one, each under a live
+    tracer with one rolling-window session of 24 video frames interleaved,
+    closed after frame 17 and resumed from its checkpoint. Checks: results against
+    direct batch-1 calls of the engine's route and of the plain "scatter"
+    route (no kernel), counts bit for bit and features within the
+    tolerances, pushes against the stream plan's rolling
+    window, kernel launches against dispatched batches, ``launch_ms``
+    against the CUDA-event time of the same plan call, the saved Chrome
+    trace, the Prometheus series and a shed. Prints per-workload
+    latencies, the pad / launch / readback split, throughput per mode and
+    the launch share of the replay.
 
 Each phase prints its seconds (``phase_seconds``).
 
@@ -122,6 +141,10 @@ from repro_torch.kernels.ref import (  # noqa: E402
     glcm_offsets_3d,
     pair_planes_nd,
 )
+from repro_torch.obs.metrics import get_registry  # noqa: E402
+from repro_torch.obs.report import load_trace, validate_chrome  # noqa: E402
+from repro_torch.obs.trace import Tracer, set_tracer  # noqa: E402
+from repro_torch.serve.engine import GLCMEngine, GLCMServeConfig, QueueFullError  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: device memory rate and the float32 rate outside
 # the tensor cores (the table has no int32 rate; the kernels' integer adds
@@ -686,6 +709,8 @@ def phase_timing(stack, big, chk) -> dict:
     t.update(_halves("fused_uint8", u8, q8, fused8, reps=10))
     t["fused_uint8_bound_ms"], t["fused_uint8_bound_by"] = bound(
         u8.numel() + b * 2 * 4 + b * len(offsets) * LEVELS**2 * 4, fused_ops)
+    t["fused_uint8_plain_ms"] = cuda_ms(lambda: glcm_fused_plain(u8, LEVELS, offsets, quant=q8),
+                                        reps=3)
     glcm_features(u8, LEVELS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1204,6 +1229,368 @@ def phase_pipeline(stack, features) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# serve-mixed-4096: the serving engine on the card
+# ---------------------------------------------------------------------------
+
+# benchmarks/serve_load.py's mix and method at the paper's sizes: (name,
+# spec, request shape, features, batch size, traffic share, kernel). The
+# engine names workload 0 "default"; the table's names are the others'.
+SERVE_WORKLOADS = (
+    ("uniform4096", GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform",
+                             vrange=(0, 255)), STACK_SHAPE[1:], True, 8, 0.55, "glcm_fused"),
+    ("equalized4096", GLCMSpec(levels=LEVELS, pairs=((1, 0),), quantize="equalized"),
+     STACK_SHAPE[1:], False, 8, 0.25, "glcm_vote"),
+    ("window1024", GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform",
+                            region="window", region_shape=WINDOW, region_stride=WINDOW_STRIDE),
+     (1024, 1024), True, 8, 0.15, "glcm_window"),
+    ("volume256", GLCMSpec(levels=LEVELS, pairs=VOLUME_PAIRS, quantize="uniform", ndim=3),
+     VOLUME_SHAPE, True, 2, 0.05, "glcm_volume"),
+)
+SERVE_REQUESTS, SERVE_CALIBRATION, SERVE_LOAD = 96, 64, 0.5
+SERVE_BATCH_FILL = 8  # the deadline: 8 x 4 workloads x the mean service time
+SESSION_FRAMES, SESSION_CUT, SESSION_EVERY = 24, 17, 4  # a push after every 4th arrival
+
+
+def make_trace(n: int, seed: int = 0) -> list[tuple[float, int, int]]:
+    """serve_load.py's seeded, wall-clock-free trace: n rows of (gap,
+    workload index, priority), gaps in mean-service units; exponential
+    inter-arrivals, the middle third at 3x rate, workloads drawn by their
+    traffic share, ~20 % priority 1."""
+    rng = np.random.default_rng(seed)
+    shares = np.asarray([w[5] for w in SERVE_WORKLOADS])
+    rows = []
+    for i in range(n):
+        rate = 3.0 if n // 3 <= i < 2 * n // 3 else 1.0
+        gap = float(rng.exponential(1.0 / rate))
+        wid = int(rng.choice(len(SERVE_WORKLOADS), p=shares))
+        prio = int(rng.random() < 0.2)
+        rows.append((gap, wid, prio))
+    return rows
+
+
+class WarpClock:
+    """``time.monotonic`` plus a jumpable offset: compute still takes real
+    time, waits for the next arrival or deadline are jumps."""
+
+    def __init__(self):
+        self.offset = 0.0
+
+    def __call__(self) -> float:
+        return time.monotonic() + self.offset
+
+    def jump_to(self, t: float) -> None:
+        now = self()
+        if t > now:
+            self.offset += t - now
+
+
+def _serve_engine(max_wait_ms, clock=None, tracer=None) -> GLCMEngine:
+    _, spec0, shape0, feats0, batch0, _, _ = SERVE_WORKLOADS[0]
+    eng = GLCMEngine(GLCMServeConfig(
+        spec=spec0, image_shape=shape0, batch_size=batch0, features=feats0,
+        temporal_window=STREAM_WINDOW, max_wait_ms=max_wait_ms, max_results=100_000),
+        clock=clock, tracer=tracer)
+    for name, spec, shape, feats, batch, _, _ in SERVE_WORKLOADS[1:]:
+        eng.register(spec, shape, features=feats, batch_size=batch, name=name)
+    eng.warmup()
+    return eng
+
+
+class _Session:
+    """One rolling-window video session pushed between arrivals: a frame
+    after every ``SESSION_EVERY``-th arrival, closed after frame
+    ``SESSION_CUT`` and resumed from its ``state_dict()``."""
+
+    def __init__(self, eng: GLCMEngine, frames: np.ndarray):
+        self.eng, self.frames = eng, frames
+        self.sid = eng.open_stream()
+        self.outputs, self.push_ms, self.states = [], [], {}
+
+    def after_arrival(self, i: int) -> None:
+        if i % SESSION_EVERY != SESSION_EVERY - 1:
+            return
+        f = i // SESSION_EVERY
+        t0 = time.perf_counter()
+        self.outputs.append(self.eng.push(self.sid, self.frames[f]))
+        self.push_ms.append((time.perf_counter() - t0) * 1e3)
+        if f == SESSION_CUT:
+            state = self.eng.close_stream(self.sid)
+            self.states[f] = state
+            self.sid = self.eng.open_stream(state=state.state_dict())
+
+    def close(self) -> None:
+        self.states[len(self.outputs) - 1] = self.eng.close_stream(self.sid)
+
+
+def _replay(max_wait_ms, trace, unit_s: float, pools, *, traced=False, frames=None) -> dict:
+    """serve_load.py's event-driven replay: arrivals (and deadlines that fall
+    before them) are clock jumps, dispatch compute takes real time. With
+    ``traced``, under a live tracer on the same clock, installed globally.
+    Launch counts are set to 0 after the warm-up and read after the final
+    flush."""
+    clock = WarpClock()
+    tracer = prev = None
+    if traced:
+        tracer = Tracer(enabled=True, clock=clock)
+        prev = set_tracer(tracer)
+    try:
+        eng = _serve_engine(max_wait_ms, clock=clock, tracer=tracer)
+        session = _Session(eng, frames) if frames is not None else None
+        reset_launches()
+        drawn = [0] * len(pools)
+        tickets = []
+        start = due = clock()
+        for i, (gap, w, prio) in enumerate(trace):
+            due += gap * unit_s
+            while True:  # every deadline that falls before the next arrival
+                nd = eng.next_deadline()
+                if nd is None or nd > due:
+                    break
+                clock.jump_to(nd)
+                eng.poll()
+            clock.jump_to(due)
+            k = drawn[w] % len(pools[w])
+            drawn[w] += 1
+            tickets.append((eng.submit(pools[w][k], workload=w, priority=prio), w, k))
+            if session is not None:
+                session.after_arrival(i)
+        eng.flush()
+        span_s = clock() - start
+        if session is not None:
+            session.close()
+        counts = launches()
+    finally:
+        if tracer is not None:
+            set_tracer(prev)
+    lat = np.concatenate([eng.latencies(w, "e2e") for w in range(len(pools))])
+    return {"eng": eng, "stats": eng.stats(), "launches": counts, "span_s": span_s,
+            "tracer": tracer,
+            "session": session, "results": [(eng.result(t), w, k) for t, w, k in tickets],
+            "throughput_rps": lat.size / span_s, "e2e_p50_ms": float(np.percentile(lat, 50)),
+            "e2e_p99_ms": float(np.percentile(lat, 99)), "requests": int(lat.size)}
+
+
+def _direct(pools, scheme: str | None = None) -> list[list[np.ndarray]]:
+    """Each pooled request through a direct batch-1 plan call: by the route
+    the engine resolves (``scheme=None``) or by ``scheme``."""
+    out = []
+    for (_, spec, shape, feats, _, _, _), pool in zip(SERVE_WORKLOADS, pools):
+        plan = compile_plan(spec if scheme is None else spec.replace(scheme=scheme),
+                            (1, *shape), features=feats)
+        out.append([plan(torch.from_numpy(x[None]).to(DEV))[0].cpu().numpy() for x in pool])
+    return out
+
+
+def _check_results(replay: dict, direct, what: str) -> dict:
+    """Served results against direct batch-1 calls of the same requests:
+    counts bit for bit, features within the tolerances; the largest gaps
+    per workload."""
+    gaps = {}
+    for got, w, k in replay["results"]:
+        name, feats = SERVE_WORKLOADS[w][0], SERVE_WORKLOADS[w][3]
+        want = direct[w][k]
+        require(got.shape == want.shape and np.isfinite(got).all(),
+                f"{what} {name}: result of shape {got.shape} != {want.shape}")
+        g = gaps.setdefault(name, {"bit_identical": True, "max_abs_f1_f13": 0.0,
+                                   "max_abs_f14": 0.0, "checked": 0})
+        g["checked"] += 1
+        if not feats:
+            require(np.array_equal(got, want), f"{what} {name}: counts differ")
+            continue
+        g["bit_identical"] &= bool(np.array_equal(got, want))
+        g["max_abs_f1_f13"] = max(g["max_abs_f1_f13"],
+                                  float(np.abs(got[..., :13] - want[..., :13]).max()))
+        g["max_abs_f14"] = max(g["max_abs_f14"], float(np.abs(got[..., 13] - want[..., 13]).max()))
+        require(np.allclose(got[..., :13], want[..., :13], rtol=FEATURE_RTOL, atol=FEATURE_ATOL),
+                f"{what} {name}: features f1-f13 differ")
+        require(np.allclose(got[..., 13], want[..., 13], rtol=0, atol=F14_ATOL),
+                f"{what} {name}: feature f14 differs")
+    return gaps
+
+
+def _check_launches(replay: dict, pushes: int, what: str) -> None:
+    st = replay["stats"]["workloads"]
+    for w, (name, *_, kernel) in enumerate(SERVE_WORKLOADS):
+        require(st[w]["batches"] > 0, f"{what} {name}: no batch dispatched")
+        want = st[w]["batches"] + (pushes if w == 0 else 0)
+        require(replay["launches"][kernel] == want,
+                f"{what} {name}: {kernel} launched {replay['launches'][kernel]} times for "
+                f"{st[w]['batches']} batches and {pushes if w == 0 else 0} pushes")
+    require(replay["launches"]["histogram"] == 0, f"{what}: histogram launched")
+
+
+class _EventTimedPlan:
+    """A bucket plan whose calls are bracketed by CUDA events (recorded, not
+    waited on: the engine's own sync is what is checked)."""
+
+    def __init__(self, plan):
+        self.plan, self.events = plan, []
+
+    def __getattr__(self, name):
+        return getattr(self.plan, name)
+
+    def __call__(self, x):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.plan(x)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self) -> list[float]:
+        torch.cuda.synchronize()
+        return [start.elapsed_time(end) for start, end in self.events]
+
+
+def _check_launch_sync(pools) -> dict:
+    """Full batches of the uniform4096 and window1024 workloads through
+    event-timed plans: each dispatch's ``launch_ms`` (host clock, H2D copy,
+    plan call and device sync) is at least the CUDA-event time of that very
+    plan call. Then a shed: a workload with ``max_queue_depth=1``,
+    registered while the engine is paused."""
+    eng = _serve_engine(None)
+    out = {}
+    for w in (0, 2):
+        name, batch = SERVE_WORKLOADS[w][0], SERVE_WORKLOADS[w][4]
+        wl = eng._workloads[w]
+        timed = _EventTimedPlan(eng._plan_for(wl, batch))
+        wl.plans[batch] = timed
+        for _ in range(2):
+            for x in pools[w][:batch]:
+                eng.submit(x, workload=w)
+        event_ms = timed.ms()
+        launch_ms = list(wl.launch_ms)
+        require(len(event_ms) == len(launch_ms) == 2, f"{name}: {len(launch_ms)} dispatches")
+        require(all(lm >= em > 0 for lm, em in zip(launch_ms, event_ms)),
+                f"{name}: launch_ms {launch_ms} below the plan call's event time {event_ms}")
+        out[name] = {"launch_ms": launch_ms, "plan_event_ms": event_ms}
+    eng.pause()
+    name, spec, shape, feats, _, _, _ = SERVE_WORKLOADS[1]
+    wid = eng.register(spec, shape, features=feats, max_queue_depth=1, name="shed")
+    eng.submit(pools[1][0], workload=wid)
+    try:
+        eng.submit(pools[1][1], workload=wid)
+        shed = False
+    except QueueFullError:
+        shed = True
+    inc = eng.last_incident
+    require(shed and inc is not None and "QueueFullError" in inc["reason"]
+            and inc["records"][-1]["kind"] == "shed", "no QueueFullError incident recorded")
+    eng.resume()
+    eng.flush()
+    out["shed_incident"] = inc["reason"]
+    return out
+
+
+def _workload_summary(st: dict) -> dict:
+    out = {}
+    for w, (name, *_) in enumerate(SERVE_WORKLOADS):
+        s = st["workloads"][w]
+        out[name] = {
+            "served": s["served"], "batches": s["batches"],
+            "deadline_dispatches": s["deadline_dispatches"],
+            "batch_occupancy": {str(b): {str(k): n for k, n in h.items()}
+                                for b, h in s["batch_occupancy"].items()},
+            **{f"{kind}_p50_ms": s[f"{kind}_ms"]["p50"] for kind in ("e2e", "queue", "service")},
+            **{f"{kind}_p99_ms": s[f"{kind}_ms"]["p99"] for kind in ("e2e", "queue", "service")},
+            **{f"{phase}_p50_ms": s[f"{phase}_ms"]["p50"]
+               for phase in ("pad", "launch", "readback")},
+        }
+    return out
+
+
+def phase_serve(stack, vol, video: np.ndarray) -> dict:
+    """serve-mixed-4096: see the module docstring (phase 11)."""
+    t0 = time.perf_counter()
+    u8 = stack.to(torch.uint8).cpu().numpy()
+    pools = [list(u8), list(u8), list(stack[:, :1024, :1024].cpu().numpy()),
+             list(vol.cpu().numpy())]
+    frames = video[:SESSION_FRAMES]
+    out = {"inputs_s": time.perf_counter() - t0}
+
+    # Calibrate: a zero-gap prefix through the engine without a deadline.
+    cal = _replay(None, make_trace(SERVE_CALIBRATION, seed=1), 0.0, pools)
+    mean_service_s = 1.0 / cal["throughput_rps"]
+    max_wait_ms = SERVE_BATCH_FILL * len(SERVE_WORKLOADS) * mean_service_s * 1e3
+    out.update(mean_service_ms=mean_service_s * 1e3, max_wait_ms=max_wait_ms,
+               calibration_rps=cal["throughput_rps"])
+    del cal
+
+    trace = make_trace(SERVE_REQUESTS)
+    unit_s = mean_service_s / SERVE_LOAD
+    # Both modes carry the live tracer and the session, so that they differ
+    # only in the deadline.
+    get_registry().clear()
+    cont = _replay(max_wait_ms, trace, unit_s, pools, traced=True, frames=frames)
+    tracer = cont["tracer"]
+    prom = get_registry().to_prometheus()
+    fixed = _replay(None, trace, unit_s, pools, traced=True, frames=frames)
+
+    # Checks: results, pushes, launches, the trace and the metrics. The
+    # served results against batch-1 calls of the engine's own route (the
+    # cross-bucket identity), then against the plain "scatter" route on the
+    # card, which runs none of the kernels: each kernel at the serve shapes
+    # (batched vote streams, 1024² window grids) against a plain version.
+    for ref, scheme in (("batch1", None), ("plain", "scatter")):
+        direct = _direct(pools, scheme)
+        for mode, r in (("continuous", cont), ("fixed", fixed)):
+            out[f"results_vs_{ref}_{mode}"] = _check_results(
+                r, direct, f"{mode} vs {ref} ({scheme or 'engine route'})")
+        del direct
+    eng = cont["eng"]
+    rolled = eng.stream_plan.rolling(frames)
+    counts = compile_plan(eng.spec, tuple(frames.shape[1:]),
+                          temporal_window=STREAM_WINDOW).rolling(frames)
+    for mode, r in (("continuous", cont), ("fixed", fixed)):
+        session = r["session"]
+        require(len(session.outputs) == SESSION_FRAMES,
+                f"{mode}: {len(session.outputs)} pushes")
+        for t, got in enumerate(session.outputs):
+            require(np.array_equal(got, rolled[t].cpu().numpy()),
+                    f"{mode}: push {t} != the stream plan's rolling window")
+        for t, state in session.states.items():
+            require(torch.equal(state.counts.to(torch.float32), counts[t]),
+                    f"{mode}: session counts after frame {t} != rolling counts")
+        _check_launches(r, len(session.outputs), mode)
+    del rolled, counts
+    session = cont["session"]
+    trace_path = ROOT / "build" / "serve_trace.json"
+    trace_path.parent.mkdir(exist_ok=True)
+    tracer.save_chrome(str(trace_path))
+    problems = validate_chrome(json.loads(trace_path.read_text()))
+    require(not problems, f"serve trace: {problems[:5]}")
+    roots = [s for s in load_trace(str(trace_path)) if s.name == "glcm.request"]
+    require(sorted(s.corr for s in roots) == sorted(range(cont["requests"])),
+            f"{len(roots)} glcm.request trees for {cont['requests']} tickets")
+    for name in ["default"] + [w[0] for w in SERVE_WORKLOADS[1:]]:
+        for series in (f'repro_serve_served_total{{workload="{name}"}}',
+                       f'repro_serve_phase_ms_count{{phase="launch",workload="{name}"}}'):
+            require(series in prom, f"Prometheus text lacks {series}")
+    out["launch_sync"] = _check_launch_sync(pools)
+
+    st = cont["stats"]
+    launch_s = sum(s["launch_ms"]["mean"] * s["launch_ms"]["n"]
+                   for s in st["workloads"].values()) * 1e-3
+    out.update(
+        workloads=_workload_summary(st),
+        workloads_fixed=_workload_summary(fixed["stats"]),
+        modes={mode: {k: r[k] for k in ("throughput_rps", "e2e_p50_ms", "e2e_p99_ms",
+                                        "requests", "span_s")}
+               | {"batches": r["stats"]["batches_dispatched"]}
+               for mode, r in (("continuous", cont), ("fixed", fixed))},
+        launch_share=launch_s / cont["span_s"],
+        launches_continuous=cont["launches"], launches_fixed=fixed["launches"],
+        session_push_ms=session.push_ms,
+        session_push_p50_ms=float(np.median(session.push_ms)),
+        session_push_p50_ms_fixed=float(np.median(fixed["session"].push_ms)),
+        trace_spans=len(tracer), trace_requests=len(roots), trace_events_file=str(
+            trace_path.relative_to(ROOT)),
+        plan_cache=st["plan_cache"])
+    emit({"phase": "serve", "path": "serve-mixed-4096", **out})
+    return out
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its seconds on a line of their own."""
     t0 = time.perf_counter()
@@ -1233,12 +1620,14 @@ def main() -> int:
         chk_out.pop("counts")
     h = timed("histogram", phase_histogram, stack, big)
     t0 = time.perf_counter()
-    frames = torch.from_numpy(texture_video(4096, VIDEO_FRAMES, change_at=VIDEO_CHANGE)).to(DEV)
+    video = texture_video(4096, VIDEO_FRAMES, change_at=VIDEO_CHANGE)
+    frames = torch.from_numpy(video).to(DEV)
     emit({"phase_seconds": "video", "seconds": time.perf_counter() - t0})
     timed("temporal", phase_temporal, frames)
     ts = timed("texture_stream", phase_texture_stream, frames)
     del frames
     timed("pipeline", phase_pipeline, stack, main_run["feats"])
+    timed("serve", phase_serve, stack, vol, video)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
     runs = {name: main_run[f"{path}_launches"][name] for path, name in (
         ("features", "glcm_fused"), ("texture", "glcm_window"))}

@@ -11,9 +11,12 @@ unless the caller passes ``device="cpu"``:
 
 Layout mirrors the reference: ``core`` (spec, plan, backends, schemes,
 quantize, haralick, glcm, pipeline, stream_state, native, conflicts),
-``kernels`` (CUDA kernel wrappers with their plain PyTorch versions, the
-nvcc build, offset tables and oracles) and ``data`` (synthetic textures and
-videos). CUDA sources live in ``csrc``.
+``serve`` (``GLCMEngine``, the continuous-batching texture-feature server),
+``obs`` (tracer, metrics registry, flight recorder and the
+``python -m repro_torch.obs.report`` trace CLI), ``kernels`` (CUDA kernel
+wrappers with their plain PyTorch versions, the nvcc build, offset tables
+and oracles) and ``data`` (synthetic textures and videos). CUDA sources
+live in ``csrc``.
 """
 
 from repro_torch.core import (

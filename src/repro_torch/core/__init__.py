@@ -6,7 +6,9 @@ Execution layer (spec → plan → backend), as in ``repro.core``:
             cuda / cuda_fused / cuda_volume) — the only place scheme names
             are dispatched
   plan      compile_plan: spec + shape + device → one cached plan (or, with
-            temporal_window=, one cached stream plan)
+            temporal_window=, one cached stream plan); plan-cache counters,
+            build-time histogram and spans in repro_torch.obs; bucket_sizes /
+            pick_bucket, the launch sizes of a batched server (serve.engine)
 
 Modules:
   glcm          public API (glcm / glcm_features)

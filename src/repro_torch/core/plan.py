@@ -43,6 +43,14 @@ A ``caps.host_native`` backend ("native", picked only by name) counts on the
 host with NumPy; the symmetric/normalize/features tail then runs on the
 plan's device.
 
+Observability, as in the reference: every lookup counts into
+``repro_plan_cache_lookups_total{result=hit|miss}`` of the port's metrics
+registry (:mod:`repro_torch.obs.metrics`); a miss observes the plan's build
+time in ``repro_plan_compile_ms`` and, with a live tracer, records a
+``plan.compile`` span; a hit records a ``plan.cache_hit`` event. Batch and
+temporal plans alike. ``bucket_sizes`` / ``pick_bucket`` give a batched
+server's launch stack sizes.
+
 Not in this package yet, and rejected with NotImplementedError naming the
 slice of the port that brings it: ``check="lint"`` (plan-contract
 analyzer). There is no autotuner yet, so "auto" never consults a stored
@@ -55,6 +63,7 @@ import collections
 import dataclasses
 import math
 import threading
+import time
 from collections.abc import Callable
 
 import numpy as np
@@ -71,10 +80,14 @@ from repro_torch.core.quantize import (
 )
 from repro_torch.core.spec import GLCMSpec
 from repro_torch.core.stream_state import GLCMStreamPlan
+from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs import trace as _obs_trace
 
 __all__ = [
     "GLCMPlan",
+    "bucket_sizes",
     "compile_plan",
+    "pick_bucket",
     "plan_cache_clear",
     "plan_cache_limit",
     "plan_cache_stats",
@@ -148,6 +161,48 @@ def plan_cache_stats() -> dict:
         }
 
 
+def bucket_sizes(
+    max_batch: int, buckets: tuple[int, ...] | None = None
+) -> tuple[int, ...]:
+    """The ascending launch stack sizes a batched server pre-declares.
+
+    ``None`` → the powers of two up to ``max_batch`` plus ``max_batch``
+    itself (8 → (1, 2, 4, 8); 6 → (1, 2, 4, 6)), so a partial dispatch of
+    k requests pads at most k-1 slots while only O(log max_batch) plan
+    shapes are ever built. An explicit tuple is validated: positive,
+    strictly ascending, ending at ``max_batch``.
+    """
+    if max_batch < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    if buckets is None:
+        sizes = []
+        b = 1
+        while b < max_batch:
+            sizes.append(b)
+            b *= 2
+        sizes.append(max_batch)
+        return tuple(sizes)
+    sizes = tuple(int(b) for b in buckets)
+    if not sizes or any(b < 1 for b in sizes):
+        raise ValueError(f"buckets must be positive, got {buckets!r}")
+    if any(a >= b for a, b in zip(sizes, sizes[1:])):
+        raise ValueError(f"buckets must be strictly ascending, got {buckets!r}")
+    if sizes[-1] != max_batch:
+        raise ValueError(
+            f"buckets must end at the batch size {max_batch}, got {buckets!r}")
+    return sizes
+
+
+def pick_bucket(buckets: tuple[int, ...], n: int) -> int:
+    """The smallest pre-declared bucket that fits ``n`` requests."""
+    if n < 1:
+        raise ValueError(f"need at least one request, got {n}")
+    for b in buckets:
+        if b >= n:
+            return b
+    raise ValueError(f"{n} requests exceed the largest bucket {buckets[-1]}")
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` → the current CUDA device; raises RuntimeError when CUDA is
     asked for and no card is present."""
@@ -202,6 +257,24 @@ def _cache_put(key, plan):
             _CACHE.popitem(last=False)
             _STATS["evictions"] += 1
     return plan
+
+
+def _note_compile(resolved: GLCMSpec, shape, kind: str, t_build: float,
+                  t_build_tr: float) -> None:
+    """Record one plan-cache miss: miss counter, build-ms histogram, and
+    (tracing on) a ``plan.compile`` span."""
+    ms = (time.perf_counter() - t_build) * 1e3
+    reg = _obs_metrics.get_registry()
+    reg.counter("repro_plan_cache_lookups_total",
+                "plan-cache lookups by result", result="miss").inc()
+    reg.histogram("repro_plan_compile_ms",
+                  "plan build time on cache miss (ms)",
+                  scheme=resolved.scheme).observe(ms)
+    tr = _obs_trace.get_tracer()
+    if tr.enabled:
+        tr.add_span("plan.compile", t_build_tr, tr.clock(),
+                    scheme=resolved.scheme, shape=str(tuple(shape)),
+                    kind=kind, ms=round(ms, 3))
 
 
 def compile_plan(
@@ -266,8 +339,19 @@ def compile_plan(
         if plan is not None:
             _CACHE.move_to_end(key)
             _STATS["hits"] += 1
-            return plan
+    tracer = _obs_trace.get_tracer()
+    if plan is not None:
+        _obs_metrics.get_registry().counter(
+            "repro_plan_cache_lookups_total", "plan-cache lookups by result",
+            result="hit").inc()
+        if tracer.enabled:
+            tracer.event("plan.cache_hit", scheme=plan.spec.scheme, shape=str(shape))
+        return plan
 
+    # Cache miss: time the plan build (backend resolution, validation and
+    # the program's closures) for the compile span and histogram.
+    t_build_tr = tracer.clock() if tracer.enabled else 0.0
+    t_build = time.perf_counter()
     name = _backends.resolve_scheme(spec, device, require=require)
     backend = _backends.get_backend(name)
     if not _backends.supports_ndim(backend, nd):
@@ -357,6 +441,7 @@ def compile_plan(
             features=features, delta_fn=delta_fn, tail_fn=tail, device=device, grid=grid,
             fused_quantize=fused, host_native=backend.caps.host_native,
         )
+        _note_compile(resolved, shape, "stream", t_build, t_build_tr)
         return _cache_put(key, plan)
 
     def run(img) -> torch.Tensor:
@@ -392,4 +477,5 @@ def compile_plan(
         device=device, fn=run_host if host else run, grid=grid, fused_quantize=fused,
         host_native=host,
     )
+    _note_compile(resolved, shape, "plan", t_build, t_build_tr)
     return _cache_put(key, plan)

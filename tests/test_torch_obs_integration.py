@@ -1,0 +1,397 @@
+"""Observability threaded through repro_torch: a submit() correlation id
+traceable end to end as one span tree, per-phase dispatch stats, the flight
+recorder firing on shed/dispatch failures, plan-cache instrumentation, and
+the ``repro_torch.obs.report`` CLI.
+
+Counterparts of ``tests/test_obs_integration.py``, on the CPU
+(``device="cpu"``). The reference's plan-lint and autotune tests have no
+counterpart yet: ``check="lint"`` still raises NotImplementedError here
+(tested), and the autotuner is a later slice of the port. One more test
+holds the port's engine to the reference engine: the same traffic on the
+same virtual clock gives the same span trees and the same ``repro_serve_*``
+series.
+"""
+
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.plan import compile_plan, plan_cache_clear
+from repro_torch.core.spec import GLCMSpec
+from repro_torch.obs import report as obs_report
+from repro_torch.obs.metrics import get_registry
+from repro_torch.obs.trace import Tracer, set_tracer
+from repro_torch.serve.engine import GLCMEngine as _Engine
+from repro_torch.serve.engine import GLCMServeConfig, QueueFullError
+
+try:  # the reference engine needs JAX, which a machine with a card may not have
+    from repro.obs.metrics import get_registry as ref_get_registry
+    from repro.obs.trace import Tracer as RefTracer
+    from repro.serve.engine import GLCMEngine as RefEngine
+    from repro.serve.engine import GLCMServeConfig as RefConfig
+except ImportError:
+    RefEngine = None
+
+RNG = np.random.default_rng(3)
+SHAPE = (32, 32)
+IMGS = RNG.random((16, *SHAPE), np.float32)
+
+
+def GLCMEngine(cfg, **kw):
+    return _Engine(cfg, device="cpu", **kw)
+
+
+class FakeClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, ms):
+        self.t += ms * 1e-3
+
+
+def _cfg(**kw):
+    kw.setdefault("levels", 8)
+    kw.setdefault("image_shape", SHAPE)
+    kw.setdefault("pairs", ((1, 0),))
+    return GLCMServeConfig(**kw)
+
+
+@pytest.fixture
+def tracer():
+    """A live tracer installed globally (so compile_plan spans are captured
+    too), restored afterwards."""
+    tr = Tracer(enabled=True)
+    prev = set_tracer(tr)
+    yield tr
+    set_tracer(prev)
+
+
+# ---------------------------------------------------------------------------
+# end-to-end request span trees
+# ---------------------------------------------------------------------------
+
+
+def test_submit_correlation_id_traceable_end_to_end(tracer):
+    """One submit() ticket = one span tree: queue wait, padding, launch
+    (device-synced), readback — every span carrying the ticket as its
+    correlation id, children linked to the request root."""
+    clock = FakeClock()
+    eng = GLCMEngine(_cfg(batch_size=4), clock=clock, tracer=tracer)
+    tickets = []
+    for i in range(4):
+        tickets.append(eng.submit(IMGS[i]))
+        clock.advance(1.0)
+
+    spans = tracer.spans()
+    by_name = {}
+    for s in spans:
+        by_name.setdefault(s.name, []).append(s)
+
+    # submit() marked each arrival with an instant carrying the ticket
+    assert [s.attrs["ticket"] for s in by_name["glcm.submit"]] == tickets
+
+    # one request tree per ticket, phases parented to the root
+    roots = {s.corr: s for s in by_name["glcm.request"]}
+    assert sorted(roots) == sorted(tickets)
+    for t in tickets:
+        root = roots[t]
+        children = [s for s in spans
+                    if s.parent == root.id and s.corr == t]
+        names = {s.name for s in children}
+        assert names == {"glcm.queue_wait", "glcm.pad", "glcm.launch",
+                         "glcm.readback"}
+        phases = {s.name: s for s in children}
+        # contiguous phase boundaries: wait→pad→launch→readback
+        assert root.t0 == phases["glcm.queue_wait"].t0
+        assert phases["glcm.queue_wait"].t1 == phases["glcm.pad"].t0
+        assert phases["glcm.pad"].t1 == phases["glcm.launch"].t0
+        assert phases["glcm.launch"].t1 == phases["glcm.readback"].t0
+        assert phases["glcm.readback"].t1 == root.t1
+        # the launch duration is device-synced
+        assert phases["glcm.launch"].attrs["synced"] is True
+        assert phases["glcm.launch"].attrs["backend"]
+
+    # plus one batch-level dispatch tree on the engine's own track
+    (disp,) = by_name["glcm.dispatch"]
+    assert disp.attrs["occupancy"] == 4
+    disp_children = [s for s in spans if s.parent == disp.id]
+    assert {s.name for s in disp_children} == {"glcm.pad", "glcm.launch",
+                                               "glcm.readback"}
+
+    # results still served normally
+    assert eng.result(tickets[0]).shape[0] == 1
+
+
+def test_untraced_engine_records_no_spans():
+    tr = Tracer(enabled=False)
+    eng = GLCMEngine(_cfg(batch_size=2), tracer=tr)
+    eng.submit(IMGS[0])
+    eng.submit(IMGS[1])
+    assert len(tr) == 0
+
+
+def test_deadline_dispatch_spans_marked(tracer):
+    clock = FakeClock()
+    eng = GLCMEngine(_cfg(batch_size=8, max_wait_ms=5.0), clock=clock,
+                     tracer=tracer)
+    t = eng.submit(IMGS[0])
+    clock.advance(6.0)
+    eng.poll()
+    root = next(s for s in tracer.spans()
+                if s.name == "glcm.request" and s.corr == t)
+    assert root.attrs["deadline"] is True
+    assert root.attrs["occupancy"] == 1
+
+
+def test_stream_push_span_carries_stream_correlation(tracer):
+    eng = GLCMEngine(_cfg(batch_size=2, temporal_window=2), tracer=tracer)
+    sid = eng.open_stream()
+    eng.push(sid, IMGS[0])
+    eng.push(sid, IMGS[1])
+    pushes = [s for s in tracer.spans() if s.name == "glcm.stream_push"]
+    assert len(pushes) == 2
+    assert {s.corr for s in pushes} == {f"stream-{sid}"}
+    assert pushes[-1].attrs["frames_seen"] == 2
+
+
+# ---------------------------------------------------------------------------
+# per-phase stats and metrics
+# ---------------------------------------------------------------------------
+
+
+def test_stats_expose_per_phase_dispatch_breakdown():
+    eng = GLCMEngine(_cfg(batch_size=2))
+    eng.submit(IMGS[0])
+    eng.submit(IMGS[1])
+    w = eng.stats()["workloads"][0]
+    for phase in ("pad_ms", "launch_ms", "readback_ms"):
+        assert w[phase]["n"] == 1, phase
+        assert w[phase]["p50"] >= 0.0
+    st = eng.stats()
+    assert st["flight_records"] >= 1  # dispatch record always kept
+    assert st["incidents"] == 0
+
+
+def test_serve_metrics_populate_global_registry():
+    reg = get_registry()
+    reg.clear()
+    eng = GLCMEngine(_cfg(batch_size=2))  # registers fresh series
+    eng.submit(IMGS[0])
+    eng.submit(IMGS[1])
+    snap = reg.snapshot()
+    by_labels = {tuple(sorted(s["labels"].items())): s["value"]
+                 for s in snap["repro_serve_submitted_total"]["series"]}
+    assert by_labels[(("workload", "default"),)] == 2
+    assert snap["repro_serve_served_total"]["series"][0]["value"] == 2
+    assert snap["repro_serve_batches_total"]["series"][0]["value"] == 1
+    phase_series = snap["repro_serve_phase_ms"]["series"]
+    phases = {s["labels"]["phase"] for s in phase_series}
+    assert phases == {"queue", "pad", "launch", "readback"}
+    # scrape-ready exposition includes the histogram series
+    assert "repro_serve_phase_ms_bucket" in reg.to_prometheus()
+
+
+# ---------------------------------------------------------------------------
+# flight recorder incidents
+# ---------------------------------------------------------------------------
+
+
+def test_queue_full_dumps_flight_recorder():
+    eng = GLCMEngine(_cfg(batch_size=8, max_queue_depth=2))
+    eng.submit(IMGS[0])
+    eng.submit(IMGS[1])
+    with pytest.raises(QueueFullError):
+        eng.submit(IMGS[2])
+    inc = eng.last_incident
+    assert inc is not None
+    assert "QueueFullError" in inc["reason"]
+    assert inc["records"][-1]["kind"] == "shed"
+    assert eng.stats()["incidents"] == 1
+
+
+def test_dispatch_error_dumps_flight_recorder(monkeypatch):
+    eng = GLCMEngine(_cfg(batch_size=2))
+    eng.submit(IMGS[0])  # queued, no dispatch yet
+
+    def boom(w, bucket):
+        raise RuntimeError("device fell over")
+
+    monkeypatch.setattr(eng, "_plan_for", boom)
+    with pytest.raises(RuntimeError, match="device fell over"):
+        eng.submit(IMGS[1])  # fills the batch → dispatch → failure
+    inc = eng.last_incident
+    assert inc is not None and "dispatch error" in inc["reason"]
+    err = inc["records"][-1]
+    assert err["kind"] == "dispatch_error"
+    assert err["tickets"] == [0, 1]
+
+
+# ---------------------------------------------------------------------------
+# plan-cache instrumentation
+# ---------------------------------------------------------------------------
+
+
+def test_plan_compile_and_cache_hit_instrumented(tracer):
+    plan_cache_clear()
+    reg = get_registry()
+    reg.clear()
+    spec = GLCMSpec(levels=8, pairs=((1, 0),))
+    compile_plan(spec, (16, 16), device="cpu")   # miss → plan.compile span
+    compile_plan(spec, (16, 16), device="cpu")   # hit → plan.cache_hit event
+    names = [s.name for s in tracer.spans()]
+    assert "plan.compile" in names
+    assert "plan.cache_hit" in names
+    comp = next(s for s in tracer.spans() if s.name == "plan.compile")
+    assert comp.attrs["scheme"] == "onehot"  # the RESOLVED scheme, not "auto"
+    assert comp.attrs["shape"] == "(16, 16)"
+    assert comp.attrs["kind"] == "plan"
+    snap = reg.snapshot()
+    lookups = {s["labels"]["result"]: s["value"]
+               for s in snap["repro_plan_cache_lookups_total"]["series"]}
+    assert lookups == {"miss": 1, "hit": 1}
+    assert snap["repro_plan_compile_ms"]["series"][0]["count"] == 1
+
+
+def test_stream_plan_compile_and_cache_hit_instrumented(tracer):
+    plan_cache_clear()
+    reg = get_registry()
+    reg.clear()
+    spec = GLCMSpec(levels=8, pairs=((1, 0),))
+    for _ in range(3):
+        compile_plan(spec, (16, 16), temporal_window=4, device="cpu")
+    comp = [s for s in tracer.spans() if s.name == "plan.compile"]
+    hits = [s for s in tracer.spans() if s.name == "plan.cache_hit"]
+    assert len(comp) == 1 and comp[0].attrs["kind"] == "stream" and len(hits) == 2
+    snap = reg.snapshot()
+    lookups = {s["labels"]["result"]: s["value"]
+               for s in snap["repro_plan_cache_lookups_total"]["series"]}
+    assert lookups == {"miss": 1, "hit": 2}
+
+
+def test_plan_lint_still_not_implemented(tracer):
+    """``check="lint"`` comes with the plan-contract analyzer slice: it
+    raises before any lookup, so it records no span and counts nothing."""
+    plan_cache_clear()
+    reg = get_registry()
+    reg.clear()
+    spec = GLCMSpec(levels=8, pairs=((1, 0),))
+    with pytest.raises(NotImplementedError, match="lint"):
+        compile_plan(spec, (16, 16), check="lint", device="cpu")
+    assert not [s for s in tracer.spans() if s.name.startswith("plan.")]
+    assert "repro_plan_cache_lookups_total" not in reg.snapshot()
+
+
+# ---------------------------------------------------------------------------
+# report CLI
+# ---------------------------------------------------------------------------
+
+
+def _traced_engine_run(tracer):
+    clock = FakeClock()
+    eng = GLCMEngine(_cfg(batch_size=2), clock=clock, tracer=tracer)
+    for i in range(4):
+        eng.submit(IMGS[i])
+        clock.advance(1.0)
+    eng.flush()
+
+
+def test_report_cli_summarizes_native_trace(tracer, tmp_path, capsys):
+    _traced_engine_run(tracer)
+    path = tmp_path / "trace.json"
+    tracer.save(str(path))
+    assert obs_report.main([str(path)]) == 0
+    out = capsys.readouterr().out
+    assert "per-phase breakdown" in out
+    assert "glcm.request" in out
+    assert "dispatch timeline" in out
+    assert "example span tree" in out
+
+
+def test_report_cli_renders_requested_tree(tracer, tmp_path, capsys):
+    _traced_engine_run(tracer)
+    path = tmp_path / "trace.json"
+    tracer.save(str(path))
+    assert obs_report.main([str(path), "--request", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "span tree of request" in out and "glcm.queue_wait" in out
+
+
+def test_report_cli_converts_and_validates_chrome(tracer, tmp_path, capsys):
+    _traced_engine_run(tracer)
+    native = tmp_path / "trace.json"
+    chrome = tmp_path / "chrome.json"
+    tracer.save(str(native))
+    assert obs_report.main([str(native), "--chrome", str(chrome)]) == 0
+    doc = json.loads(chrome.read_text())
+    assert obs_report.validate_chrome(doc) == []
+    # --validate accepts both formats (native is converted first)
+    assert obs_report.main([str(chrome), "--validate"]) == 0
+    assert obs_report.main([str(native), "--validate"]) == 0
+    capsys.readouterr()
+
+
+def test_report_cli_validate_fails_on_broken_trace(tmp_path, capsys):
+    bad = tmp_path / "bad.json"
+    bad.write_text(json.dumps({"traceEvents": [
+        {"ph": "X", "name": "a", "ts": 1}]}))  # X without dur
+    assert obs_report.main([str(bad), "--validate"]) == 1
+    assert "INVALID" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# parity with the reference engine
+# ---------------------------------------------------------------------------
+
+
+def _replay(engine_cls, cfg, tracer, clock):
+    """Mixed traffic on a virtual clock that only moves when told: full
+    batches, a deadline launch, a flush and a shed."""
+    eng = engine_cls(cfg, clock=clock, tracer=tracer)
+    for i in range(5):
+        eng.submit(IMGS[i], priority=i % 2)
+        clock.advance(0.5)
+    clock.advance(3.0)
+    eng.poll()
+    eng.pause()
+    for i in range(3):
+        eng.submit(IMGS[i])
+    with pytest.raises(Exception, match="max_queue_depth"):
+        eng.submit(IMGS[3])
+    eng.resume()
+    eng.flush()
+    return eng
+
+
+def test_engine_traces_and_series_match_reference():
+    if RefEngine is None:
+        pytest.skip("needs JAX to run the reference engine")
+    kw = dict(levels=8, image_shape=SHAPE, pairs=((1, 0),), batch_size=2,
+              max_wait_ms=2.0, max_queue_depth=3)
+    docs, series, incidents = [], [], []
+    for engine_cls, cfg, tracer_cls, registry in (
+            (GLCMEngine, GLCMServeConfig(**kw), Tracer, get_registry()),
+            (RefEngine, RefConfig(**kw), RefTracer, ref_get_registry())):
+        registry.clear()
+        clock = FakeClock()
+        tr = tracer_cls(enabled=True, clock=clock)
+        eng = _replay(engine_cls, cfg, tr, clock)
+        doc = tr.to_dict()
+        for s in doc["spans"]:
+            s["attrs"].pop("backend", None)  # scheme names are per package
+        docs.append(doc)
+        # on a clock that never moves inside a dispatch every phase is 0 ms,
+        # so the whole repro_serve_* exposition is deterministic
+        series.append([ln for ln in registry.to_prometheus().splitlines()
+                       if "repro_serve_" in ln])
+        inc = eng.last_incident
+        incidents.append((inc["reason"], [r["kind"] for r in inc["records"]]))
+    assert docs[0] == docs[1]
+    assert series[0] == series[1] and any("repro_serve_phase_ms_bucket" in ln
+                                          for ln in series[0])
+    assert incidents[0] == incidents[1]
