@@ -82,6 +82,26 @@ Phases, each printing one JSON line:
     trace, the Prometheus series and a shed. Prints per-workload
     latencies, the pad / launch / readback split, throughput per mode and
     the launch share of the replay.
+12. ``autotune``: ``core.autotune`` on the card with ``trials=3`` for
+    main-path workloads at the paper's sizes (``AUTOTUNE_WORKLOADS``:
+    features-4096 with features, and glcm-16384), one line each: every candidate's
+    µs, every skip and its reason, the winner, and the µs of the untuned
+    "auto" choice's candidate. Checks: ``compile_plan`` of the "auto" spec
+    returns a plan whose ``tuned`` is the winner and whose spec carries its
+    knobs; its launch counts show the winner's kernel; its counts equal the
+    untuned plan's and the plain "scatter" route's bit for bit on the
+    main-path input, features within the tolerances; a fresh
+    ``python3 -c`` process resolves features-4096 to the same winner from
+    the sidecar and records no ``autotune.candidate`` span; the
+    ``autotune.*`` spans and ``repro_autotune_candidate_us`` series are
+    there. Reported, not gated: tuned against untuned plan in 5 alternating
+    CUDA-event pairs on the smooth input and on the tuner's random sample,
+    and the ``copies`` sweep of ``glcm_vote`` (the paper's Table III) on the
+    smooth 16384² image and on a random 4096² one.
+
+The store of autotuner winners is ``build/autotune.json``
+(``REPRO_TORCH_AUTOTUNE_PATH``), deleted before any plan is compiled, so
+every phase before ``autotune`` runs the untuned "auto" choice.
 
 Each phase prints its seconds (``phase_seconds``).
 
@@ -94,6 +114,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -105,6 +126,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.core import autotune  # noqa: E402
 from repro_torch.core.glcm import PAPER_PAIRS, VOLUME_PAIRS, glcm, glcm_features  # noqa: E402
 from repro_torch.core.pipeline import coalesce_images, glcm_feature_stream  # noqa: E402
 from repro_torch.core.haralick import haralick_features  # noqa: E402
@@ -1591,6 +1613,210 @@ def phase_serve(stack, vol, video: np.ndarray) -> dict:
     return out
 
 
+# The autotune phase: the store, the trials per candidate and the workloads
+# (name, spec, features) in the order they are tuned; each workload's shape
+# and inputs are the main path's. Tuning all four main-path workloads took
+# 972 s on an H100, 781 s of it the volumes' plain candidates (PERF.md §6),
+# so the phase tunes the first two: features-4096 (97 s) and glcm-16384
+# (50 s), whose winner is not the untuned choice.
+AUTOTUNE_PATH = ROOT / "build" / "autotune.json"
+AUTOTUNE_TRIALS = 3
+AUTOTUNE_WORKLOADS = (
+    ("features-4096", GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform"), True),
+    ("glcm-16384", GLCMSpec(levels=LEVELS, pairs=((1, 45),), quantize="uniform"), False),
+)
+COPIES_SWEEP = (1, 2, 4, 8, 16, 32)
+
+
+def _winner_kernels(spec: GLCMSpec) -> tuple[str, ...]:
+    """The kernel a plan of this resolved global 2-D spec launches (none for
+    the plain backends)."""
+    return {"cuda": ("glcm_vote",), "cuda_fused": ("glcm_fused",)}.get(spec.scheme, ())
+
+
+def _event_ms(plan, x) -> float:
+    """One call of ``plan(x)`` between CUDA events, host work included."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plan(x)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _alternating(untuned, tuned, x, pairs: int = 5) -> dict:
+    """Untuned and tuned plan on ``x`` in ``pairs`` CUDA-event pairs, the
+    order alternating (untuned first in even pairs), after a warm-up each."""
+    _event_ms(untuned, x)
+    _event_ms(tuned, x)
+    ms = {"untuned": [], "tuned": []}
+    for i in range(pairs):
+        order = (("untuned", untuned), ("tuned", tuned))
+        for side, plan in (order if i % 2 == 0 else order[::-1]):
+            ms[side].append(_event_ms(plan, x))
+    return {**{f"{k}_ms": v for k, v in ms.items()},
+            **{f"{k}_median_ms": float(np.median(v)) for k, v in ms.items()}}
+
+
+def _fresh_process_choice(index: int, shape) -> dict:
+    """What a fresh interpreter resolves ``AUTOTUNE_WORKLOADS[index]`` at
+    ``shape`` to, from the sidecar alone, and the ``autotune.*`` spans it
+    recorded."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke\n"
+        "from repro_torch.obs.trace import Tracer, set_tracer\n"
+        "tr = Tracer(enabled=True)\n"
+        "set_tracer(tr)\n"
+        f"_, spec, features = chip_smoke.AUTOTUNE_WORKLOADS[{index}]\n"
+        f"plan = chip_smoke.compile_plan(spec, {tuple(shape)!r}, features=features)\n"
+        "tuned = None if plan.tuned is None else [plan.tuned.backend, dict(plan.tuned.knobs)]\n"
+        "spans = [s.name for s in tr.spans() if s.name.startswith('autotune.')]\n"
+        "print(json.dumps({'scheme': plan.spec.scheme, 'tuned': tuned, 'autotune_spans': spans}))\n"
+    )
+    env = dict(os.environ, REPRO_TORCH_AUTOTUNE_PATH=str(AUTOTUNE_PATH))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                       timeout=300)
+    require(r.returncode == 0, f"fresh process failed: {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _tune_one(name, spec, features, x, smooth) -> dict:
+    """Tune one workload, then check and time what ``compile_plan`` serves."""
+    shape = tuple(x.shape)
+    untuned = compile_plan(spec, shape, features=features)
+    untuned_counts = compile_plan(spec, shape)
+    require(untuned.tuned is None and untuned_counts.tuned is None,
+            f"{name}: a winner was stored before tuning")
+    t0 = time.perf_counter()
+    report: dict = {}
+    choice = autotune.autotune(spec, shape, features=features, trials=AUTOTUNE_TRIALS,
+                               report=report)
+    tune_s = time.perf_counter() - t0
+    base = [r for r in report["measured"]
+            if spec.replace(scheme=r["backend"], **r["knobs"]) == untuned.spec]
+    require(len(base) == 1, f"{name}: the untuned choice {untuned.spec.scheme} was not "
+                            f"measured once ({len(base)} rows)")
+    winner = min(report["measured"], key=lambda r: r["us"])
+
+    tuned = compile_plan(spec, shape, features=features)
+    tuned_counts = compile_plan(spec, shape)
+    for p in (tuned, tuned_counts):
+        require(p.tuned == choice, f"{name}: plan.tuned {p.tuned} != winner {choice}")
+        require(p.spec == choice.apply(spec), f"{name}: plan spec {p.spec} lacks the knobs")
+    kernels = _winner_kernels(tuned.spec)
+    reset_launches()
+    got = tuned(x)
+    torch.cuda.synchronize()
+    counts_run = launches()
+    _only(counts_run, kernels, f"{name}: tuned plan")
+    for kernel in kernels:
+        require(counts_run[kernel] > 0, f"{name}: tuned plan never launched {kernel}")
+    counts = tuned_counts(x)
+    require(torch.equal(counts, untuned_counts(x)), f"{name}: tuned counts != untuned counts")
+    plain = compile_plan(spec.replace(scheme="scatter"), shape)(x)
+    require(torch.equal(counts, plain), f"{name}: tuned counts != plain scatter counts")
+    del plain
+    out = {}
+    if features:
+        want = untuned(x).cpu().numpy()
+        have = got.cpu().numpy()
+        require(np.isfinite(have).all() and have.shape == want.shape,
+                f"{name}: tuned features not finite or of shape {have.shape}")
+        require(np.allclose(have[..., :13], want[..., :13], rtol=FEATURE_RTOL,
+                            atol=FEATURE_ATOL), f"{name}: tuned features f1-f13 differ")
+        require(np.allclose(have[..., 13], want[..., 13], rtol=0, atol=F14_ATOL),
+                f"{name}: tuned feature f14 differs")
+        out["features_max_abs_diff"] = float(np.abs(have - want).max())
+    del got, counts
+
+    sample = autotune._sample_input(spec, shape, DEV)
+    out.update(
+        workload=name, shape=list(shape), features=bool(features), tune_s=tune_s,
+        candidates=report["measured"], skipped=report["skipped"],
+        winner={"backend": choice.backend, "knobs": dict(choice.knobs), "us": winner["us"]},
+        untuned={"backend": untuned.spec.scheme, "knobs": base[0]["knobs"],
+                 "us": base[0]["us"]},
+        tuned_launches=counts_run,
+        tuned_vs_untuned_smooth=_alternating(untuned, tuned, smooth),
+        tuned_vs_untuned_sample=_alternating(untuned, tuned, sample),
+    )
+    del sample
+    emit({"phase": "autotune", **out})
+    return out
+
+
+def _copies_sweep(stack, big) -> dict:
+    """``glcm_vote`` over the binned (1, 45) pair streams of the smooth
+    16384² image and of the random stack[4], at each R of COPIES_SWEEP
+    (CUDA-event means), each result exact against R = 1."""
+    out = {}
+    for name, img, reps in (("smooth_16384", big, 10), ("random_4096", stack[4], 20)):
+        lo, span = uniform_params(img)
+        assoc, ref = pair_planes_nd(img, glcm_offsets(1, 45))
+        a = bin_values(assoc, LEVELS, lo, span).reshape(1, -1)
+        r = bin_values(ref, LEVELS, lo, span).reshape(1, -1)
+        want = glcm_vote(a, r, levels=LEVELS, copies=1)
+        ms = {}
+        for copies in COPIES_SWEEP:
+            require(torch.equal(glcm_vote(a, r, levels=LEVELS, copies=copies), want),
+                    f"glcm_vote R={copies} on {name} differs from R=1")
+            ms[str(copies)] = cuda_ms(lambda: glcm_vote(a, r, levels=LEVELS, copies=copies),
+                                      reps=reps)
+        out[name] = {"pairs": a.shape[1], "ms_by_copies": ms}
+        del a, r, want
+    return out
+
+
+def phase_autotune(stack, big) -> dict:
+    """The main path's workloads tuned on the card: see the module
+    docstring (phase 12)."""
+    t0 = time.perf_counter()
+    AUTOTUNE_PATH.unlink(missing_ok=True)
+    autotune.autotune_clear()
+    require(autotune.store_path() == AUTOTUNE_PATH, f"store at {autotune.store_path()}")
+    inputs = {  # (main-path input, smooth input of the same shape)
+        "features-4096": (stack, torch.cat([stack[:4], stack[:4]])),
+        "glcm-16384": (big, big),
+    }
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    get_registry().clear()
+    try:
+        runs = [_tune_one(name, spec, feats, *inputs[name])
+                for name, spec, feats in AUTOTUNE_WORKLOADS]
+    finally:
+        set_tracer(prev)
+    spans = tracer.spans()
+    n_measured = sum(len(r["candidates"]) for r in runs)
+    n_skipped = sum(len(r["skipped"]) for r in runs)
+    count = {k: sum(s.name == k for s in spans)
+             for k in ("autotune.run", "autotune.candidate", "autotune.skipped")}
+    require(count == {"autotune.run": len(runs), "autotune.candidate": n_measured,
+                      "autotune.skipped": n_skipped}, f"autotune spans {count}")
+    series = get_registry().snapshot()["repro_autotune_candidate_us"]["series"]
+    require(sum(s["count"] for s in series) == n_measured,
+            "repro_autotune_candidate_us does not count every candidate")
+    require("repro_autotune_candidate_us_bucket" in get_registry().to_prometheus(),
+            "Prometheus text lacks repro_autotune_candidate_us")
+
+    fresh = _fresh_process_choice(0, tuple(inputs[AUTOTUNE_WORKLOADS[0][0]][0].shape))
+    want = [runs[0]["winner"]["backend"], runs[0]["winner"]["knobs"]]
+    require(fresh["tuned"] == want, f"fresh process resolved {fresh['tuned']}, not {want}")
+    require(not fresh["autotune_spans"], f"fresh process measured: {fresh['autotune_spans']}")
+    out = {"store": str(AUTOTUNE_PATH.relative_to(ROOT)),
+           "entries": len(json.loads(AUTOTUNE_PATH.read_text())),
+           "workloads": [r["workload"] for r in runs],
+           "tune_s": {r["workload"]: r["tune_s"] for r in runs},
+           "spans": count, "fresh_process": fresh,
+           "copies_sweep": _copies_sweep(stack, big),
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "autotune", **out})
+    return out
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its seconds on a line of their own."""
     t0 = time.perf_counter()
@@ -1605,6 +1831,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # Every plan before the autotune phase is untuned: a store of this run's
+    # own, empty until that phase.
+    os.environ["REPRO_TORCH_AUTOTUNE_PATH"] = str(AUTOTUNE_PATH)
+    AUTOTUNE_PATH.unlink(missing_ok=True)
     timed("device", phase_device)
     timed("build", phase_build)
     timed("kernel_check", phase_kernel_check)
@@ -1628,6 +1858,7 @@ def main() -> int:
     del frames
     timed("pipeline", phase_pipeline, stack, main_run["feats"])
     timed("serve", phase_serve, stack, vol, video)
+    timed("autotune", phase_autotune, stack, big)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
     runs = {name: main_run[f"{path}_launches"][name] for path, name in (
         ("features", "glcm_fused"), ("texture", "glcm_window"))}

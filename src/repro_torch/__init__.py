@@ -9,8 +9,10 @@ unless the caller passes ``device="cpu"``:
     for f in glcm_feature_stream(frames, 32, temporal_window=16):
         ...                                       # rolling-window features
 
-Layout mirrors the reference: ``core`` (spec, plan, backends, schemes,
-quantize, haralick, glcm, pipeline, stream_state, native, conflicts),
+Layout mirrors the reference: ``core`` (spec, plan, autotune, backends,
+schemes, quantize, haralick, glcm, pipeline, stream_state, native,
+conflicts; ``repro_torch.autotune`` is ``core.autotune``, the persisted
+autotuner behind ``scheme="auto"``),
 ``serve`` (``GLCMEngine``, the continuous-batching texture-feature server),
 ``obs`` (tracer, metrics registry, flight recorder and the
 ``python -m repro_torch.obs.report`` trace CLI), ``kernels`` (CUDA kernel
@@ -21,6 +23,7 @@ live in ``csrc``.
 
 from repro_torch.core import (
     GLCMSpec,
+    autotune,
     GLCMStream,
     compile_plan,
     glcm,
@@ -28,5 +31,5 @@ from repro_torch.core import (
     glcm_features,
 )
 
-__all__ = ["GLCMSpec", "GLCMStream", "compile_plan", "glcm", "glcm_feature_stream",
-           "glcm_features"]
+__all__ = ["GLCMSpec", "GLCMStream", "autotune", "compile_plan", "glcm",
+           "glcm_feature_stream", "glcm_features"]

@@ -9,6 +9,9 @@ Execution layer (spec → plan → backend), as in ``repro.core``:
             temporal_window=, one cached stream plan); plan-cache counters,
             build-time histogram and spans in repro_torch.obs; bucket_sizes /
             pick_bucket, the launch sizes of a batched server (serve.engine)
+  autotune  the persisted autotuner: measures each eligible backend and its
+            knobs for one workload on one device and stores the winner,
+            which "auto" then resolves to (python -m repro_torch.core.autotune)
 
 Modules:
   glcm          public API (glcm / glcm_features)
@@ -27,6 +30,7 @@ loaded at their first launch.
 """
 
 from repro_torch.core import (
+    autotune,
     backends,
     conflicts,
     haralick,
@@ -57,6 +61,7 @@ __all__ = [
     "VOLUME_PAIRS",
     "spec",
     "plan",
+    "autotune",
     "backends",
     "schemes",
     "haralick",

@@ -32,10 +32,12 @@ Built-in strategies:
   "native"       NumPy ``bincount`` on the host (``core.native``); the plan
                  calls its ``host_fn`` directly (``caps.host_native``)
 
-"auto" resolves per device by the reference's TPU rule: on CUDA
-``cuda_volume`` for volumes, else ``cuda_fused`` for more than one pair and
-``cuda`` for one; on the CPU ``onehot``. "auto" never picks ``native``:
-only its name does. The CUDA backends run on a CPU
+"auto" resolves to a stored autotuner winner for the workload and device
+when there is one (``core.autotune``, consulted by ``core.plan``), else per
+device by the reference's TPU rule: on CUDA ``cuda_volume`` for volumes,
+else ``cuda_fused`` for more than one pair and ``cuda`` for one; on the CPU
+``onehot``. The rule never picks ``native``: only its name or a measured
+win does. The CUDA backends run on a CPU
 tensor too — through their kernels' plain versions — which is how the CPU
 tests reach their plumbing.
 """
@@ -86,6 +88,9 @@ class Capabilities:
     fused_quantize: bool = False      # accepts raw pixels + quant=(lo, span)
     host_native: bool = False         # also exposes host_fn: NumPy counting
     #                                   the plan calls outside PyTorch
+    device_kernel: bool = False       # launches a CUDA kernel on a CUDA tensor
+    #                                   (its plain version on a CPU tensor, so
+    #                                   no autotune candidate for a CPU plan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -387,7 +392,8 @@ register(
     Backend(
         name="cuda",
         compute=_cuda_compute,
-        caps=Capabilities(batch_grid=True, volumetric=True, fused_quantize=True),
+        caps=Capabilities(batch_grid=True, volumetric=True, fused_quantize=True,
+                          device_kernel=True),
     )
 )
 register(
@@ -396,7 +402,7 @@ register(
         compute=_cuda_fused_compute,
         caps=Capabilities(
             multi_offset_fused=True, batch_grid=True, region_grid=True,
-            fused_quantize=True,
+            fused_quantize=True, device_kernel=True,
         ),
         region_compute=_cuda_fused_region_compute,
     )
@@ -407,7 +413,7 @@ register(
         compute=_cuda_volume_compute,
         caps=Capabilities(
             multi_offset_fused=True, batch_grid=True, volumetric=True,
-            volume_only=True, fused_quantize=True,
+            volume_only=True, fused_quantize=True, device_kernel=True,
         ),
         validate=_cuda_volume_validate,
     )

@@ -19,8 +19,11 @@ float32 tensors on the plan's device.
 Schemes: "scatter", "onehot", "blocked", "native" (NumPy counting on the
 host), "cuda" (pair-stream vote kernel), "cuda_fused" (fused multi-offset
 kernel; window kernel for regions), "cuda_volume" (depth-slab volume
-kernel) or "auto" — on CUDA "cuda_volume" for volumes, "cuda_fused" for
-several pairs and "cuda" for one; on the CPU "onehot".
+kernel) or "auto" — the autotuner's stored winner for this (spec, shape,
+device) when there is one (backend and knobs: ``chunk``, ``copies``,
+``tile_h``, ``slab_d``, ``num_blocks``; see ``core.autotune``), else on
+CUDA "cuda_volume" for volumes, "cuda_fused" for several pairs and "cuda"
+for one; on the CPU "onehot".
 """
 
 from __future__ import annotations

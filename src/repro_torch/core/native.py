@@ -4,8 +4,8 @@ Counterpart of ``repro.core.native``, whose NumPy functions this module
 copies (``uniform_params_np``, ``quantize_stack``, ``counts_pairs``,
 ``native_counts``). ``np.bincount`` over the linearised pair positions
 (``pos = ref·L + assoc``) is the honest serial-CPU way to count; the
-registry exposes it as the ``native`` backend, which only ``scheme="native"``
-picks (there is no autotuner in the port yet).
+registry exposes it as the ``native`` backend, which ``scheme="native"``
+picks, and "auto" only where the autotuner measured it the winner.
 
 The counting runs outside PyTorch: ``compile_plan`` sees
 ``caps.host_native`` and calls :func:`native_counts` on the input as a

@@ -10,14 +10,23 @@ Region specs (``region="tiles" | "window"``) give one GLCM per region:
 (B, *grid, n_pairs, L, L), with ``plan.grid`` the region grid, validated
 against the input shape when the plan is compiled.
 
-``compile_plan`` resolves "auto" against the backend registry for the plan's
-device, validates the spec against the concrete shape, builds the program
-(quantize → backend vote counting → symmetric/normalize → optionally
-Haralick features) and caches the :class:`GLCMPlan` in a bounded LRU keyed
-by ``(spec, shape, features, require, device, temporal_window)``. PyTorch
-runs eagerly, so a plan is a Python callable, not a compiled program; the
-cache still saves the resolution and validation, and the stats fields match
-the reference's.
+``compile_plan`` resolves "auto" (see below), validates the spec against
+the concrete shape, builds the program (quantize → backend vote counting →
+symmetric/normalize → optionally Haralick features) and caches the
+:class:`GLCMPlan` in a bounded LRU keyed by ``(spec, shape, features,
+require, device, tuned, temporal_window)``. PyTorch runs eagerly, so a plan
+is a Python callable, not a compiled program; the cache still saves the
+resolution and validation, and the stats fields match the reference's.
+
+"auto" consults the autotuner's store first (:mod:`repro_torch.core.autotune`):
+a winner measured for this spec (knobs reset), shape, requirements and
+device class becomes the plan's backend and knobs (``chunk``, ``copies``,
+``tile_h``, ``slab_d``, ``num_blocks``), recorded in ``plan.tuned``.
+Without one, the registry's rule for the device decides
+(``backends.resolve_scheme``). The tuned choice is part of the cache key:
+a stored winner hits one cached plan, and a re-tune misses to a fresh one.
+Temporal plans consult the store by frame shape. A named scheme never
+consults it.
 
 Devices: ``device=None`` means the current CUDA device. Only an explicit
 ``device="cpu"`` runs on the CPU; asking for CUDA on a machine without a
@@ -53,8 +62,7 @@ server's launch stack sizes.
 
 Not in this package yet, and rejected with NotImplementedError naming the
 slice of the port that brings it: ``check="lint"`` (plan-contract
-analyzer). There is no autotuner yet, so "auto" never consults a stored
-winner; ``spec.batch_mode`` is accepted and ignored.
+analyzer). ``spec.batch_mode`` is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -85,6 +93,7 @@ from repro_torch.obs import trace as _obs_trace
 
 __all__ = [
     "GLCMPlan",
+    "GLCMStreamPlan",
     "bucket_sizes",
     "compile_plan",
     "pick_bucket",
@@ -115,6 +124,7 @@ class GLCMPlan:
     grid: tuple[int, ...] = ()
     fused_quantize: bool = False   # quantization is binned inside the count
     host_native: bool = False      # counts with NumPy on the host
+    tuned: object = None           # the autotune.TunedChoice applied, if any
 
     def __call__(self, img) -> torch.Tensor:
         return self.fn(img)
@@ -333,7 +343,15 @@ def compile_plan(
         )
     require = tuple(require)
     features = _canonical_features(features)
-    key = (spec, shape, features, require, device, temporal_window)
+    tuned = None
+    if spec.scheme == "auto":
+        from repro_torch.core import autotune as _autotune  # late: plan ↔ autotune
+
+        tuned = _autotune.lookup(spec, shape, require=require, device=device)
+    # The tuned choice is part of the key: a stored winner hits the same
+    # cached plan every time, while a newly recorded winner misses to a
+    # fresh plan instead of serving the stale one.
+    key = (spec, shape, features, require, device, tuned, temporal_window)
     with _LOCK:
         plan = _CACHE.get(key)
         if plan is not None:
@@ -352,7 +370,10 @@ def compile_plan(
     # the program's closures) for the compile span and histogram.
     t_build_tr = tracer.clock() if tracer.enabled else 0.0
     t_build = time.perf_counter()
-    name = _backends.resolve_scheme(spec, device, require=require)
+    if tuned is not None:
+        name = tuned.backend
+    else:
+        name = _backends.resolve_scheme(spec, device, require=require)
     backend = _backends.get_backend(name)
     if not _backends.supports_ndim(backend, nd):
         raise ValueError(
@@ -364,7 +385,10 @@ def compile_plan(
     for cap in require:
         if not getattr(backend.caps, cap):
             raise ValueError(f"scheme {name!r} lacks required capability {cap!r}")
-    resolved = spec if spec.scheme == name else spec.replace(scheme=name)
+    if tuned is not None:
+        resolved = tuned.apply(spec)
+    else:
+        resolved = spec if spec.scheme == name else spec.replace(scheme=name)
 
     spatial = shape[-nd:]
     # Regions are validated against the concrete shape before any work
@@ -439,7 +463,7 @@ def compile_plan(
         plan = GLCMStreamPlan(
             spec=resolved, backend=backend, shape=shape, window=temporal_window,
             features=features, delta_fn=delta_fn, tail_fn=tail, device=device, grid=grid,
-            fused_quantize=fused, host_native=backend.caps.host_native,
+            fused_quantize=fused, host_native=backend.caps.host_native, tuned=tuned,
         )
         _note_compile(resolved, shape, "stream", t_build, t_build_tr)
         return _cache_put(key, plan)
@@ -475,7 +499,7 @@ def compile_plan(
     plan = GLCMPlan(
         spec=resolved, backend=backend, shape=shape, features=features,
         device=device, fn=run_host if host else run, grid=grid, fused_quantize=fused,
-        host_native=host,
+        host_native=host, tuned=tuned,
     )
     _note_compile(resolved, shape, "plan", t_build, t_build_tr)
     return _cache_put(key, plan)

@@ -3,7 +3,8 @@
 
 Counterpart of ``repro.core.schemes``:
 
-  Scheme 1 (contended atomic voting)  → ``glcm_scatter_batch`` (``bincount``
+  Scheme 1 (contended atomic voting)  → ``glcm_scatter`` (one image) and
+                                         ``glcm_scatter_batch`` (``bincount``
                                          over the linearized ``ref*L+assoc``)
   Scheme 2 (R-copy privatized voting) → ``glcm_onehot`` / ``glcm_multi``
                                          (one-hot matmul ``RᵀA`` per copy)
@@ -29,6 +30,7 @@ from repro_torch.core.quantize import bin_values, repeat_params
 from repro_torch.kernels.ref import DIRECTIONS_3D, glcm_offsets, pair_planes_nd
 
 __all__ = [
+    "glcm_scatter",
     "glcm_scatter_batch",
     "glcm_onehot",
     "glcm_multi",
@@ -73,6 +75,41 @@ def _as_stack(img: torch.Tensor, nd: int) -> tuple[torch.Tensor, bool]:
             f"{tuple(img.shape)}"
         )
     return img[None], False
+
+
+def glcm_scatter(
+    img: torch.Tensor,
+    levels: int,
+    d: int = 1,
+    theta: int = 0,
+    *,
+    offset: tuple[int, ...] | None = None,
+    symmetric: bool = False,
+    normalize: bool = False,
+    quant=None,
+) -> torch.Tensor:
+    """Scheme 1 for one image: every pixel pair votes into one shared (L, L)
+    accumulator (a ``bincount``, the counterpart of contended atomics).
+
+    ``offset`` (an explicit (dy, dx) / (dz, dy, dx) tuple) overrides
+    (d, theta). ``img`` is (*spatial) → (L, L) or (B, *spatial) →
+    (B, L, L) float32, each image binned with its own entry of per-image
+    ``quant=(lo, span)``; symmetric and normalize apply per image.
+    """
+    if offset is None:
+        off = glcm_offsets(d, theta)
+    else:
+        off = tuple(int(v) for v in offset)
+        if len(off) not in (2, 3):
+            raise ValueError(f"offset must be (dy, dx) or (dz, dy, dx), got {offset!r}")
+    stack, batched = _as_stack(img, len(off))
+    glcm = glcm_scatter_batch(stack, levels, (off,), quant=quant)[:, 0]
+    if symmetric:
+        glcm = glcm + glcm.transpose(-1, -2)
+    glcm = glcm.to(torch.float32)
+    if normalize:
+        glcm = glcm / glcm.sum(dim=(-2, -1), keepdim=True).clamp_min(1.0)
+    return glcm if batched else glcm[0]
 
 
 def glcm_scatter_batch(

@@ -90,14 +90,18 @@ class GLCMSpec:
                 directions of ``kernels.ref.DIRECTIONS_3D``.
     scheme      backend name ("scatter" | "onehot" | "blocked" | "native" |
                 "cuda" | "cuda_fused" | "cuda_volume")
-                or "auto" (resolved at plan time from the plan's device and
-                the registry's capabilities — see ``core.backends``).
+                or "auto" (resolved at plan time to the autotuner's stored
+                winner for this (spec, shape, device) when there is one —
+                see ``core.autotune`` — else from the plan's device and the
+                registry's capabilities — see ``core.backends``).
     quantize    pre-quantization mode (see QUANTIZE_MODES), applied per image.
     symmetric   add the transpose (P + Pᵀ) after counting.
     normalize   divide each matrix by its sum (probabilities, not counts).
-    copies      the paper's R: number of private sub-accumulators (Scheme 2).
+    copies      the paper's R: number of private sub-accumulators (Scheme 2;
+                the CUDA kernels' shared-memory copies). An autotuner knob.
     num_blocks  leading-axis blocks for the blocked scheme (Scheme 3, single
-                device): row blocks for images, depth slabs for volumes.
+                device): row blocks for images, depth slabs for volumes. An
+                autotuner knob.
     vrange      static (vmin, vmax) for uniform quantization; None derives
                 the range from each image's own data (the default everywhere
                 except the streaming pipeline, which pins 0..255).
@@ -122,11 +126,13 @@ class GLCMSpec:
                 are bounded by plane/block area and widened before reduction),
                 the knob only trades execution speed.
     tile_h      fused-kernel row-tile height override (None = the kernel
-                default: max(8, largest dy) rounded up to 8).
+                default: max(8, largest dy) rounded up to 8). An autotuner
+                knob — see ``core.autotune``.
     chunk       pair-stream chunk length override (None = kernel default
-                2048). Must be a multiple of ``copies``.
+                2048). Must be a multiple of ``copies``. An autotuner knob.
     slab_d      volume-kernel depth-slab override (None = max(8, largest dz)
                 rounded up to 8); splits the work, never changes the counts.
+                An autotuner knob.
     batch_mode  batch-axis topology of the reference's TPU kernels (see
                 BATCH_MODES). Accepted and validated for parity; on CUDA the
                 batch is always a grid dimension, so no backend reads it.

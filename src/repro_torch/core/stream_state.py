@@ -149,6 +149,7 @@ class GLCMStreamPlan:
     grid: tuple[int, ...] = ()
     fused_quantize: bool = False
     host_native: bool = False
+    tuned: object = None  # the autotune.TunedChoice applied, if any
 
     def update_fn(
         self, state: GLCMStreamState, frame: torch.Tensor

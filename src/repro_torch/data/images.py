@@ -21,6 +21,7 @@ __all__ = [
     "texture_video",
     "smooth_volume",
     "random_volume",
+    "volume_stream",
     "PAPER_SIZES",
 ]
 
@@ -129,3 +130,10 @@ def random_volume(shape, seed: int = 0) -> np.ndarray:
     d, h, w = _shape3(shape)
     rng = np.random.default_rng(seed)
     return rng.integers(0, 256, size=(d, h, w)).astype(np.uint8)
+
+
+def volume_stream(kind: str, shape, count: int, seed: int = 0):
+    """Yield ``count`` volumes of one regime (for the streamed pipeline)."""
+    gen = {"smooth": smooth_volume, "random": random_volume}[kind]
+    for i in range(count):
+        yield gen(shape, seed=seed + i)

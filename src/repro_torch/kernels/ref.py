@@ -21,8 +21,11 @@ __all__ = [
     "DIRECTIONS_3D",
     "glcm_offsets",
     "glcm_offsets_3d",
+    "pair_planes",
     "pair_planes_nd",
+    "glcm_reference",
     "glcm_reference_nd",
+    "glcm_multi_reference",
     "histogram_reference",
     "onehot_count_reference",
 ]
@@ -102,6 +105,41 @@ def pair_planes_nd(
             assoc_ix.append(slice(-delta, size))
             ref_ix.append(slice(0, size + delta))
     return img[tuple(assoc_ix)], img[tuple(ref_ix)]
+
+
+def pair_planes(img: torch.Tensor, d: int, theta: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Aligned (assoc, ref) views for the 2-D offset (d, theta) over the
+    trailing two axes (paper Eq. (2)); leading batch dims are kept."""
+    if img.ndim < 2:
+        raise ValueError(f"expected (..., H, W) image, got shape {tuple(img.shape)}")
+    return pair_planes_nd(img, glcm_offsets(d, theta))
+
+
+def glcm_reference(
+    img: torch.Tensor,
+    levels: int,
+    d: int = 1,
+    theta: int = 0,
+    *,
+    symmetric: bool = False,
+    normalize: bool = False,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """Scheme-1 oracle for one (already quantized) image and the offset
+    (d, theta). Returns (levels, levels); ``P[i, j]`` counts pairs with ref
+    level ``i`` and associate level ``j`` (paper Eq. (3))."""
+    return glcm_reference_nd(img, levels, glcm_offsets(d, theta), symmetric=symmetric,
+                             normalize=normalize, dtype=dtype)
+
+
+def glcm_multi_reference(
+    img: torch.Tensor,
+    levels: int,
+    pairs: tuple[tuple[int, int], ...],
+    **kw,
+) -> torch.Tensor:
+    """Stacked oracle GLCMs for several (d, theta) pairs → (len(pairs), L, L)."""
+    return torch.stack([glcm_reference(img, levels, d, t, **kw) for d, t in pairs])
 
 
 def glcm_reference_nd(

@@ -19,7 +19,9 @@ keep launches *full and frequent* under real traffic:
   of two up to ``batch_size``, e.g. 1/2/4/8) instead of the full batch.
   Bucket plans resolve through the shared bounded-LRU plan cache
   (``core.plan.compile_plan``): engines with equal specs on one device
-  share plans.
+  share plans. With ``scheme="auto"``, an autotuner winner stored for a
+  bucket's shape before the engine compiles that bucket
+  (``core.autotune``) is what the engine serves.
 * **Many specs, one engine.**  ``register(spec, image_shape)`` adds a
   workload (its own queue, buckets, plans, metrics) multiplexed over the
   same dispatch loop; ``submit(img, workload=wid)`` routes to it.  The

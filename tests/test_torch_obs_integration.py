@@ -4,9 +4,9 @@ recorder firing on shed/dispatch failures, plan-cache instrumentation, and
 the ``repro_torch.obs.report`` CLI.
 
 Counterparts of ``tests/test_obs_integration.py``, on the CPU
-(``device="cpu"``). The reference's plan-lint and autotune tests have no
-counterpart yet: ``check="lint"`` still raises NotImplementedError here
-(tested), and the autotuner is a later slice of the port. One more test
+(``device="cpu"``). The reference's plan-lint test has no counterpart
+yet: ``check="lint"`` still raises NotImplementedError here (tested). Its
+autotune test's counterpart is in ``test_torch_autotune.py``. One more test
 holds the port's engine to the reference engine: the same traffic on the
 same virtual clock gives the same span trees and the same ``repro_serve_*``
 series.
