@@ -98,6 +98,31 @@ Phases, each printing one JSON line:
     CUDA-event pairs on the smooth input and on the tuner's random sample,
     and the ``copies`` sweep of ``glcm_vote`` (the paper's Table III) on the
     smooth 16384² image and on a random 4096² one.
+13. ``distributed``: multi-rank sharding (``core.distributed``). The parent
+    bins the 16384² smooth image, the smooth 256 x 512 x 512 volume, both
+    volumes and the first 4096² texture to L = 32 (uniform, each over its
+    own range) into uint8 level files, frees its stacks, and starts 4 gloo
+    ranks (``torch.multiprocessing.spawn``, a ``FileStore``) that share
+    cuda:0 and memmap the files: ``glcm_sharded`` of the image at d = 1,
+    theta = 45 and d = 4, theta = 90 (halos of 1 and 4 rows) and of the
+    volume by depth in direction 7 and (d = 2, direction 9) (halos of 1 and
+    2 slices); ``glcm_sharded_batch`` of the two volumes on a (2, 2) mesh
+    (batch over "data", depth over "model"); the texture map in 256² tiles
+    (4 grid rows a rank); ``glcm_auto_sharded`` of the first image case;
+    and the 32² windows at stride 16, whose 255-row grid must raise on
+    every rank. Each rank's launch counts must show exactly one launch of
+    the case's kernel (``glcm_fused``, ``glcm_volume`` or ``glcm_window``)
+    and nothing else, its counts int32 on the card. Each rank also counts
+    the input the call gave its kernel (the extended shard, its halo read
+    straight from the file here; or its block of rows) by the kernel and by
+    its plain version on the card, which must agree. One process counts
+    each whole input on the card by the kernel and by the plain version,
+    which must agree; every rank's counts equal those plain counts bit for
+    bit. Then a 1-rank NCCL group on the card runs the first image case.
+    Printed per case and rank: the first call, 3 whole calls (host clock
+    after a sync) and one traced call's stages (the block's read and copy
+    to the card, the halo exchange, the kernel, the all_reduce; host ms and
+    CUDA-event ms); and the one-process call and kernel.
 
 The store of autotuner winners is ``build/autotune.json``
 (``REPRO_TORCH_AUTOTUNE_PATH``), deleted before any plan is compiled, so
@@ -115,23 +140,33 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import autotune  # noqa: E402
+from repro_torch.core.backends import compute_regions  # noqa: E402
+from repro_torch.core.distributed import (  # noqa: E402
+    glcm_auto_sharded,
+    glcm_sharded,
+    glcm_sharded_batch,
+)
 from repro_torch.core.glcm import PAPER_PAIRS, VOLUME_PAIRS, glcm, glcm_features  # noqa: E402
 from repro_torch.core.pipeline import coalesce_images, glcm_feature_stream  # noqa: E402
 from repro_torch.core.haralick import haralick_features  # noqa: E402
 from repro_torch.core.plan import compile_plan  # noqa: E402
-from repro_torch.core.quantize import bin_values, uniform_params  # noqa: E402
+from repro_torch.core.quantize import bin_values, quantize_uniform, uniform_params  # noqa: E402
 from repro_torch.core.schemes import extract_regions  # noqa: E402
 from repro_torch.core.spec import GLCMSpec  # noqa: E402
 from repro_torch.data.images import (  # noqa: E402
@@ -157,6 +192,7 @@ from repro_torch.kernels.glcm_kernel import (  # noqa: E402
 )
 from repro_torch.kernels.histogram_kernel import histogram, histogram_plain  # noqa: E402
 from repro_torch.kernels.ops import default_slab_d, default_tile_h  # noqa: E402
+from repro_torch.launch.mesh import make_compat_mesh, make_host_mesh  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     DIRECTIONS_3D,
     glcm_offsets,
@@ -1817,6 +1853,319 @@ def phase_autotune(stack, big) -> dict:
     return out
 
 
+# The distributed phase: DIST_WORLD gloo ranks sharing the card, their inputs
+# as uint8 level files each rank memmaps, and the cases. Each case is
+# (name, the call every rank makes, the kernel that counts it).
+DIST_WORLD = 4
+DIST_DIR = ROOT / "build" / "distributed"
+DIST_IMAGE_PAIRS = ((1, 45), (4, 90))                 # halos of 1 and 4 rows
+DIST_VOLUME_PAIRS = ((1, VOLUME_DIRECTION), (2, 9))   # halos of 1 and 2 slices
+DIST_TILES = GLCMSpec(levels=LEVELS, pairs=((1, 0),), region="tiles", region_shape=TILE)
+DIST_WINDOWS = GLCMSpec(levels=LEVELS, pairs=((1, 0),), region="window",
+                        region_shape=WINDOW, region_stride=WINDOW_STRIDE)
+DIST_TIMED_CALLS = 3
+
+
+def _volume_spec(d: int, k: int) -> GLCMSpec:
+    return GLCMSpec(levels=LEVELS, pairs=((d, k),), ndim=3)
+
+
+def _dist_load(name: str) -> np.ndarray:
+    return np.load(DIST_DIR / f"{name}.npy", mmap_mode="r")
+
+
+def _dist_rows(x, lo: int, n: int) -> torch.Tensor:
+    """Slices [lo, lo + n) of ``x``'s leading axis as int32 levels on the
+    card, -1 for those past its end."""
+    block = torch.from_numpy(np.array(x[lo: lo + n])).to(DEV).to(torch.int32)
+    pad = block.new_full((n - block.shape[0], *block.shape[1:]), -1)
+    return torch.cat([block, pad])
+
+
+def _halo_check(x, spec: GLCMSpec, index: int, n: int, plain):
+    """The shard check of a halo case: rank ``index`` of ``n``'s extended
+    shard of ``x`` — its block and the next d0 slices, read here straight
+    from the input — counted by the plan's ``local_partial`` hook (the
+    kernel, as the sharded call runs it) and by ``plain``."""
+    def check():
+        plan = compile_plan(spec, tuple(x.shape), require=("sharded_partial",), device=DEV)
+        off = plan.spec.offsets()[0]
+        local_n = x.shape[0] // n
+        ext = _dist_rows(x, index * local_n, local_n + off[0])[None]
+        return (plan.backend.local_partial(ext, LEVELS, off, local_n)[0],
+                plain(ext, LEVELS, (off,))[0, 0])
+    return check
+
+
+def _block_check(x, spec: GLCMSpec, lo: int, hi: int, plain):
+    """The shard check of a case without a halo (the texture map's block of
+    rows, the auto cross-check's block and gather): rows [lo, hi) of ``x``
+    counted by the plan's region route (the kernel) and by ``plain``."""
+    def check():
+        plan = compile_plan(spec, tuple(x.shape), require=("sharded_partial",), device=DEV)
+        block = _dist_rows(x, lo, min(hi, x.shape[0]) - lo)[None]
+        got = compute_regions(plan.backend, block, plan.spec)[0, ..., 0, :, :]
+        return got.to(torch.int32), plain(block)[0]
+    return check
+
+
+def _dist_cases(mesh, mesh22, rank: int):
+    """The cases every rank runs, in order: (name, the call, the kernel that
+    counts it, this rank's shard check)."""
+    image, volume = _dist_load("image"), _dist_load("volume")
+    for d, t in DIST_IMAGE_PAIRS:
+        spec = GLCMSpec(levels=LEVELS, pairs=((d, t),))
+        yield (f"image_d{d}_t{t}",
+               lambda d=d, t=t: glcm_sharded(image, LEVELS, d, t, mesh, device=DEV),
+               "glcm_fused", _halo_check(image, spec, rank, DIST_WORLD, glcm_fused_plain))
+    for d, k in DIST_VOLUME_PAIRS:
+        spec = _volume_spec(d, k)
+        yield (f"volume_d{d}_k{k}",
+               lambda spec=spec: glcm_sharded(volume, mesh=mesh, spec=spec, device=DEV),
+               "glcm_volume", _halo_check(volume, spec, rank, DIST_WORLD, glcm_volume_plain))
+    volumes = _dist_load("volumes")
+    spec = _volume_spec(1, VOLUME_DIRECTION)
+    bi, ri = divmod(rank, 2)  # the (2, 2) mesh's ("data", "model") coordinates
+    yield ("volumes_batch",
+           lambda: glcm_sharded_batch(volumes, mesh=mesh22, device=DEV, spec=spec),
+           "glcm_volume", _halo_check(volumes[bi], spec, ri, 2, glcm_volume_plain))
+    texture = _dist_load("texture")
+    per = (texture.shape[0] // TILE) // DIST_WORLD  # grid rows a rank owns
+    yield ("tiles", lambda: glcm_sharded(texture, mesh=mesh, spec=DIST_TILES, device=DEV),
+           "glcm_window",
+           _block_check(texture, DIST_TILES, rank * per * TILE, (rank + 1) * per * TILE,
+                        lambda b: glcm_window_plain(b, LEVELS, ((0, 1),),
+                                                    region_shape=TILE)[..., 0, :, :]))
+    d, t = DIST_IMAGE_PAIRS[0]
+    n0 = image.shape[0]
+    lo, hi = rank * n0 // DIST_WORLD, (rank + 1) * n0 // DIST_WORLD + glcm_offsets(d, t)[0]
+    yield ("auto", lambda: glcm_auto_sharded(image, LEVELS, d, t, mesh, device=DEV),
+           "glcm_fused",
+           _block_check(image, GLCMSpec(levels=LEVELS, pairs=((d, t),)), lo, hi,
+                        lambda b: glcm_fused_plain(b, LEVELS, (glcm_offsets(d, t),))[:, 0]))
+
+
+def _stage_times(fn) -> dict:
+    """One call of ``fn`` under a live tracer: each ``distributed.*`` stage's
+    host ms (it closes after a synchronize) and CUDA-event ms."""
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        set_tracer(prev)
+    return {s.name.removeprefix("distributed."): {"host_ms": s.dur * 1e3,
+                                                  "device_ms": s.attrs.get("device_ms")}
+            for s in tracer.spans() if s.name.startswith("distributed.")}
+
+
+def _dist_case(name: str, fn, kernel: str, check, rank: int) -> dict:
+    """Run one case on this rank: the counted first call (its result saved
+    for the parent), the shard check (this rank's kernel input counted by
+    the kernel and by its plain version, which must agree), a traced call
+    and DIST_TIMED_CALLS whole calls."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    runs = launches()
+    want = {k: int(k == kernel) for k in runs}
+    require(runs == want, f"rank {rank} {name}: launches {runs}, expected {want}")
+    require(got.device.type == "cuda" and got.dtype == torch.int32,
+            f"rank {rank} {name}: counts {got.dtype} on {got.device}")
+    np.save(DIST_DIR / f"{name}_r{rank}.npy", got.cpu().numpy())
+    kernel_counts, plain_counts = check()
+    shard_err = int((kernel_counts.to(torch.int64) - plain_counts.to(torch.int64)).abs().max())
+    require(shard_err == 0, f"rank {rank} {name}: {kernel} on the rank's shard differs "
+            f"from its plain version by {shard_err}")
+    stages = _stage_times(fn)
+    call_ms = []
+    for _ in range(DIST_TIMED_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"launches": runs, "shard_max_abs_err": shard_err, "first_call_ms": first_ms,
+            "call_ms": call_ms, "stages": stages}
+
+
+def _dist_rank(rank: int) -> None:
+    """One gloo rank of the distributed phase on cuda:0 (the target of
+    ``torch.multiprocessing.spawn``); writes ``rank<r>.json``."""
+    torch.cuda.set_device(DEV)
+    dist.init_process_group("gloo", init_method=f"file://{DIST_DIR / 'gloo.store'}",
+                            rank=rank, world_size=DIST_WORLD, timeout=timedelta(seconds=60))
+    try:
+        mesh = make_host_mesh((DIST_WORLD,), ("data",))
+        mesh22 = make_host_mesh((2, 2), ("data", "model"))
+        out = {name: _dist_case(name, fn, kernel, check, rank)
+               for name, fn, kernel, check in _dist_cases(mesh, mesh22, rank)}
+        try:
+            glcm_sharded(_dist_load("texture"), mesh=mesh, spec=DIST_WINDOWS, device=DEV)
+            out["window_error"] = None
+        except ValueError as e:  # the indivisible grid must raise, on every rank
+            out["window_error"] = str(e)
+        (DIST_DIR / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _distributed_inputs(stack, big, vol) -> dict:
+    """The phase's inputs as uint8 level files, each binned once to L = 32 by
+    the port's uniform quantizer over its own range."""
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    arrays = {"image": big, "volume": vol[0], "texture": stack[0]}
+    for name, x in arrays.items():
+        np.save(DIST_DIR / f"{name}.npy",
+                quantize_uniform(x, LEVELS).to(torch.uint8).cpu().numpy())
+    np.save(DIST_DIR / "volumes.npy", torch.stack(
+        [quantize_uniform(v, LEVELS) for v in vol]).to(torch.uint8).cpu().numpy())
+    return {name: list(_dist_load(name).shape) for name in (*arrays, "volumes")}
+
+
+def _one_process() -> dict:
+    """Each case's counts by one process on the card over the whole input:
+    the case's kernel and its plain version, which must agree bit for bit
+    (the plain counts are what the ranks are held against); and the
+    one-process call of the first image case (read, copy, kernel)."""
+    def on_card(name):
+        return torch.from_numpy(np.load(DIST_DIR / f"{name}.npy")).to(DEV).to(torch.int32)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    image = on_card("image")
+    d, t = DIST_IMAGE_PAIRS[0]
+    ops.glcm_cuda_multi(image, LEVELS, ((d, t),))
+    torch.cuda.synchronize()
+    timing = {"one_process_call_ms": (time.perf_counter() - t0) * 1e3,
+              "one_process_kernel_ms": cuda_ms(
+                  lambda: ops.glcm_cuda_multi(image, LEVELS, ((d, t),)), reps=5)}
+    got, want = {}, {}
+    for d, t in DIST_IMAGE_PAIRS:
+        name = f"image_d{d}_t{t}"
+        got[name] = ops.glcm_cuda_multi(image, LEVELS, ((d, t),))[0]
+        want[name] = glcm_fused_plain(image[None], LEVELS, (glcm_offsets(d, t),))[0, 0]
+    first = "image_d{}_t{}".format(*DIST_IMAGE_PAIRS[0])  # auto's pair
+    got["auto"], want["auto"] = got[first], want[first]
+    del image
+    volume = on_card("volume")
+    for d, k in DIST_VOLUME_PAIRS:
+        name = f"volume_d{d}_k{k}"
+        got[name] = ops.glcm_cuda_volume(volume, LEVELS, ((d, k),))[0]
+        want[name] = glcm_volume_plain(volume[None], LEVELS, (glcm_offsets_3d(d, k),))[0, 0]
+    del volume
+    volumes = on_card("volumes")
+    got["volumes_batch"] = ops.glcm_cuda_volume(volumes, LEVELS, ((1, VOLUME_DIRECTION),))[:, 0]
+    want["volumes_batch"] = glcm_volume_plain(
+        volumes, LEVELS, (glcm_offsets_3d(1, VOLUME_DIRECTION),))[:, 0]
+    del volumes
+    texture = on_card("texture")
+    got["tiles"] = glcm_window(texture, levels=LEVELS, offsets=((0, 1),),
+                               region_shape=TILE)[..., 0, :, :]
+    want["tiles"] = glcm_window_plain(texture, LEVELS, ((0, 1),),
+                                      region_shape=TILE)[..., 0, :, :]
+    del texture
+    for name in want:
+        err = int((got[name].to(torch.int64) - want[name].to(torch.int64)).abs().max())
+        require(err == 0, f"{name}: one process's kernel differs from its plain version by {err}")
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    del got
+    torch.cuda.empty_cache()  # the ranks share the card
+    return want, timing
+
+
+def _assemble(name: str, blocks: list[np.ndarray]) -> np.ndarray:
+    """The rank results of one case as the one-process array: whole outputs
+    must agree on every rank (every rank of a row group for the batch);
+    the texture map's blocks concatenate in rank order."""
+    if name == "tiles":
+        return np.concatenate(blocks)
+    if name == "volumes_batch":  # (2, 2) mesh: rank r holds volume r // 2
+        for r in (1, 3):
+            require(np.array_equal(blocks[r], blocks[r - 1]),
+                    f"{name}: ranks {r - 1} and {r} of a row group differ")
+        return np.concatenate([blocks[0], blocks[2]])
+    for r in range(1, len(blocks)):
+        require(np.array_equal(blocks[r], blocks[0]), f"{name}: rank {r} differs from rank 0")
+    return blocks[0]
+
+
+def _nccl_one_rank(want: np.ndarray) -> dict:
+    """The first image case on a 1-rank NCCL group on the card: the
+    collectives' device-tensor route (the all_reduce; one rank has no halo
+    to exchange)."""
+    dist.init_process_group("nccl", init_method=f"file://{DIST_DIR / 'nccl.store'}",
+                            rank=0, world_size=1, timeout=timedelta(seconds=60))
+    try:
+        require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh = make_compat_mesh((1,), ("data",))
+        image = _dist_load("image")
+        d, t = DIST_IMAGE_PAIRS[0]
+        out = _dist_case(f"image_d{d}_t{t}_nccl",
+                         lambda: glcm_sharded(image, LEVELS, d, t, mesh, device=DEV),
+                         "glcm_fused",
+                         _halo_check(image, GLCMSpec(levels=LEVELS, pairs=((d, t),)), 0, 1,
+                                     glcm_fused_plain), 0)
+        got = np.load(DIST_DIR / f"image_d{d}_t{t}_nccl_r0.npy")
+        require(np.array_equal(got, want), "1-rank NCCL counts differ from one process")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_distributed(shapes: dict) -> dict:
+    """Multi-rank sharding (``core.distributed``): DIST_WORLD gloo ranks on
+    cuda:0 run every case of ``_dist_cases``; each rank's counts are held bit
+    for bit against one process counting the whole input on the card; see the
+    module docstring (phase 13)."""
+    t_phase = time.perf_counter()
+    want, timing = _one_process()
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(_dist_rank, nprocs=DIST_WORLD, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((DIST_DIR / f"rank{r}.json").read_text()) for r in range(DIST_WORLD)]
+    cases = {}
+    for name in want:
+        blocks = [np.load(DIST_DIR / f"{name}_r{r}.npy") for r in range(DIST_WORLD)]
+        got = _assemble(name, blocks)
+        require(got.shape == want[name].shape, f"{name}: shape {got.shape} != {want[name].shape}")
+        err = int(np.abs(got.astype(np.int64) - want[name].astype(np.int64)).max())
+        require(err == 0, f"{name}: sharded counts differ from one process by {err}")
+        cases[name] = {"shape": list(got.shape), "max_abs_err": err,
+                       "ranks": [r[name] for r in ranks]}
+        emit({"phase": "distributed", "case": name, **cases[name]})
+    grid = (shapes["texture"][0] - WINDOW) // WINDOW_STRIDE + 1
+    expect = f"region grid extent {grid} not divisible by {DIST_WORLD} shards"
+    errors = [r["window_error"] for r in ranks]
+    require(errors == [expect] * DIST_WORLD, f"indivisible window grid: {errors}")
+    d, t = DIST_IMAGE_PAIRS[0]
+    nccl = _nccl_one_rank(want[f"image_d{d}_t{t}"])
+    out = {"world": DIST_WORLD, "inputs": shapes, "cases": list(cases), "window_error": expect,
+           "nccl_one_rank": nccl, "spawn_s": spawn_s, **timing,
+           "sharded_launches_per_rank": {
+               k: [sum(r[c]["launches"][k] for c in cases) for r in ranks]
+               for k in ("glcm_fused", "glcm_volume", "glcm_window")},
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "distributed", **out})
+    shutil.rmtree(DIST_DIR)
+    return out
+
+
+def _drop_tensors(*results: dict) -> None:
+    """Free the tensors the phases' results hold; keep their numbers."""
+    def holds_tensor(v):
+        return torch.is_tensor(v) or (isinstance(v, tuple) and any(map(torch.is_tensor, v)))
+
+    for res in results:
+        for key in [k for k, v in res.items() if holds_tensor(v)]:
+            del res[key]
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its seconds on a line of their own."""
     t0 = time.perf_counter()
@@ -1859,6 +2208,12 @@ def main() -> int:
     timed("pipeline", phase_pipeline, stack, main_run["feats"])
     timed("serve", phase_serve, stack, vol, video)
     timed("autotune", phase_autotune, stack, big)
+    shapes = timed("distributed_inputs", _distributed_inputs, stack, big, vol)
+    # The ranks share the card: free the parent's stacks first.
+    _drop_tensors(main_run, chk, t)
+    del stack, big, vol
+    torch.cuda.empty_cache()
+    sharded = timed("distributed", phase_distributed, shapes)["sharded_launches_per_rank"]
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
     runs = {name: main_run[f"{path}_launches"][name] for path, name in (
         ("features", "glcm_fused"), ("texture", "glcm_window"))}
@@ -1876,6 +2231,7 @@ def main() -> int:
         {"name": "glcm_fused", "route": "cuda", "source": "src/repro_torch/csrc/glcm_fused.cu",
          "replaces": "src/repro/kernels/glcm_kernel.py:539",
          "launches": runs["glcm_fused"],
+         "sharded_launches_per_rank": sharded["glcm_fused"],
          "max_abs_err": chk["fused_max_abs_err"], "ms": t["fused_ms"],
          "plain_ms": t["fused_plain_ms"], "bound_ms": t["fused_bound_ms"],
          "bound_by": t["fused_bound_by"], "library_ms": None},
@@ -1883,6 +2239,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/glcm_window.cu",
          "replaces": "src/repro/kernels/glcm_kernel.py:299",
          "launches": runs["glcm_window"],
+         "sharded_launches_per_rank": sharded["glcm_window"],
          "max_abs_err": tchk["window_max_abs_err"], "ms": t["window_ms"],
          "plain_ms": t["window_plain_ms"], "bound_ms": t["window_bound_ms"],
          "bound_by": t["window_bound_by"], "library_ms": t["window_library_ms"]},
@@ -1899,6 +2256,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/glcm_volume.cu",
          "replaces": "src/repro/kernels/glcm_kernel.py:440",
          "launches": runs["glcm_volume"],
+         "sharded_launches_per_rank": sharded["glcm_volume"],
          "max_abs_err": vchk["volume_max_abs_err"], "ms": t["volume_ms"],
          "plain_ms": t["volume_plain_ms"], "bound_ms": t["volume_bound_ms"],
          "bound_by": t["volume_bound_by"], "library_ms": t["volume_library_ms"]},

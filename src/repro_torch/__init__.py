@@ -11,8 +11,10 @@ unless the caller passes ``device="cpu"``:
 
 Layout mirrors the reference: ``core`` (spec, plan, autotune, backends,
 schemes, quantize, haralick, glcm, pipeline, stream_state, native,
-conflicts; ``repro_torch.autotune`` is ``core.autotune``, the persisted
-autotuner behind ``scheme="auto"``),
+conflicts, distributed; ``repro_torch.autotune`` is ``core.autotune``, the
+persisted autotuner behind ``scheme="auto"``; ``repro_torch.distributed`` is
+``core.distributed``, the sharded GLCM over ``torch.distributed``),
+``launch`` (device meshes for it),
 ``serve`` (``GLCMEngine``, the continuous-batching texture-feature server),
 ``obs`` (tracer, metrics registry, flight recorder and the
 ``python -m repro_torch.obs.report`` trace CLI), ``kernels`` (CUDA kernel
@@ -24,6 +26,7 @@ live in ``csrc``.
 from repro_torch.core import (
     GLCMSpec,
     autotune,
+    distributed,
     GLCMStream,
     compile_plan,
     glcm,
@@ -31,5 +34,5 @@ from repro_torch.core import (
     glcm_features,
 )
 
-__all__ = ["GLCMSpec", "GLCMStream", "autotune", "compile_plan", "glcm",
+__all__ = ["GLCMSpec", "GLCMStream", "autotune", "compile_plan", "distributed", "glcm",
            "glcm_feature_stream", "glcm_features"]

@@ -12,6 +12,9 @@ Execution layer (spec → plan → backend), as in ``repro.core``:
   autotune  the persisted autotuner: measures each eligible backend and its
             knobs for one workload on one device and stores the winner,
             which "auto" then resolves to (python -m repro_torch.core.autotune)
+  distributed  multi-rank sharding over torch.distributed: rows/depth with a
+            halo exchange and one all_reduce, or the window grid
+            (glcm_sharded / glcm_sharded_batch / glcm_auto_sharded)
 
 Modules:
   glcm          public API (glcm / glcm_features)
@@ -33,6 +36,7 @@ from repro_torch.core import (
     autotune,
     backends,
     conflicts,
+    distributed,
     haralick,
     native,
     pipeline,
@@ -63,6 +67,7 @@ __all__ = [
     "plan",
     "autotune",
     "backends",
+    "distributed",
     "schemes",
     "haralick",
     "quantize",

@@ -32,6 +32,11 @@ Built-in strategies:
   "native"       NumPy ``bincount`` on the host (``core.native``); the plan
                  calls its ``host_fn`` directly (``caps.host_native``)
 
+Three backends also give the per-shard partials of ``core.distributed``
+(``caps.sharded_partial``, ``local_partial``): "onehot" by the one-hot
+matmul, "cuda_fused" and "cuda_volume" by one launch of their kernel on the
+halo-extended shard, each as exact int32 counts.
+
 "auto" resolves to a stored autotuner winner for the workload and device
 when there is one (``core.autotune``, consulted by ``core.plan``), else per
 device by the reference's TPU rule: on CUDA ``cuda_volume`` for volumes,
@@ -58,9 +63,11 @@ from repro_torch.core.schemes import (
     glcm_multi,
     glcm_scatter_batch,
     glcm_windowed,
+    local_partial_nd,
 )
 from repro_torch.core.spec import GLCMSpec
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.glcm_kernel import glcm_fused, glcm_volume
 
 __all__ = [
     "Backend",
@@ -91,6 +98,8 @@ class Capabilities:
     device_kernel: bool = False       # launches a CUDA kernel on a CUDA tensor
     #                                   (its plain version on a CPU tensor, so
     #                                   no autotune candidate for a CPU plan)
+    sharded_partial: bool = False     # supplies sentinel-masked partials for
+    #                                   halo-exchange sharding (distributed.*)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +109,12 @@ class Backend:
     ``validate(spec, shape)`` (optional) rejects spec/shape combinations the
     strategy cannot serve (e.g. blocked with a height that does not divide)
     before any work; for region specs ``shape`` is the per-region batch it
-    will see. ``region_compute(img_batch, spec, quant=None)`` (present iff
+    will see. ``local_partial(ext, levels, offset, local_n)`` (present iff
+    ``caps.sharded_partial``) is the per-shard hook of ``core.distributed``:
+    the exact int32 (L, L) partial GLCM of a leading-axis shard extended
+    with halo slices, -1 sentinels dropped — ``offset`` is the per-axis
+    (dy, dx) / (dz, dy, dx) tuple and ``local_n`` the shard's un-extended
+    leading extent; leading batch dims of ``ext`` give (*batch, L, L). ``region_compute(img_batch, spec, quant=None)`` (present iff
     ``caps.region_grid``) serves non-global specs natively, returning
     (B, *grid, n_pairs, L, L). ``host_fn(stack_np, spec, quant)`` (present
     iff ``caps.host_native``) counts a (B, *spatial) ndarray into an integer
@@ -111,6 +125,7 @@ class Backend:
     compute: Callable[..., torch.Tensor]
     caps: Capabilities = Capabilities()
     validate: Callable[[GLCMSpec, tuple[int, ...]], None] | None = None
+    local_partial: Callable[..., torch.Tensor] | None = None
     region_compute: Callable[..., torch.Tensor] | None = None
     host_fn: Callable[..., np.ndarray] | None = None
 
@@ -174,6 +189,11 @@ def register(backend: Backend) -> Backend:
             f"backend {backend.name!r}: caps.host_native must match the "
             "presence of host_fn"
         )
+    if backend.caps.sharded_partial != (backend.local_partial is not None):
+        raise ValueError(
+            f"backend {backend.name!r}: caps.sharded_partial must match the "
+            "presence of local_partial"
+        )
     _REGISTRY[backend.name] = backend
     return backend
 
@@ -212,13 +232,21 @@ def resolve_scheme(
     kernel otherwise (the reference's TPU rule); on the CPU the one-hot
     scheme. ``require`` names :class:`Capabilities` fields the backend must
     declare; "auto" then picks the first capable backend by name, leaving
-    out the host-native ones unless ``host_native`` is required.
+    out the host-native ones unless ``host_native`` is required. The device
+    decides which come first: on CUDA the device-kernel backends (so
+    ``sharded_partial`` gives ``cuda_fused`` for 2-D and ``cuda_volume`` for
+    3-D), on the CPU the others (``onehot``, the reference's answer); a CPU
+    plan takes a device-kernel backend, which runs its plain version there,
+    only when no other has the capabilities (``batch_grid``).
     """
     if spec.scheme != "auto":
         get_backend(spec.scheme)  # existence check; capability check in plan
         return spec.scheme
     if require:
-        for name in available_backends():
+        on_card = device.type == "cuda"
+        names = sorted(available_backends(),
+                       key=lambda n: _REGISTRY[n].caps.device_kernel != on_card)
+        for name in names:
             backend = _REGISTRY[name]
             if backend.caps.host_native and "host_native" not in require:
                 continue
@@ -310,6 +338,17 @@ def _cuda_fused_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.
     ).to(torch.float32)
 
 
+def _cuda_fused_local_partial(ext, levels, offset, local_n) -> torch.Tensor:
+    # One launch over the whole extended shard: a pair whose assoc pixel lies
+    # in a halo row would need its ref pixel below the extension, so the
+    # kernel counts exactly the shard's pairs; -1 halo levels do not vote.
+    # The int32 counts are returned as they are (exact past 2**24). A batch
+    # of shards is one launch.
+    offsets = (tuple(offset),)
+    return glcm_fused(ext, levels=levels, offsets=offsets,
+                      tile_h=kops.default_tile_h(offsets))[..., 0, :, :]
+
+
 def _cuda_fused_region_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
     # The window kernel reads each window of the (B, H, W) stack in place and
     # bins it with its image's (lo, span): no patch grid is made.
@@ -324,6 +363,13 @@ def _cuda_volume_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch
         img, spec.levels, spec.pairs, offsets=spec.offsets(), slab_d=spec.slab_d,
         copies=spec.copies, quant=quant,
     ).to(torch.float32)
+
+
+def _cuda_volume_local_partial(ext, levels, offset, local_n) -> torch.Tensor:
+    # One launch over the whole extended slab, as _cuda_fused_local_partial.
+    offsets = (tuple(offset),)
+    return glcm_volume(ext, levels=levels, offsets=offsets,
+                       slab_d=kops.default_slab_d(offsets))[..., 0, :, :]
 
 
 def _native_quant(quant):
@@ -364,8 +410,9 @@ register(
         compute=_onehot_compute,
         caps=Capabilities(
             multi_offset_fused=True, region_grid=True, volumetric=True,
-            fused_quantize=True,
+            fused_quantize=True, sharded_partial=True,
         ),
+        local_partial=local_partial_nd,
         region_compute=_onehot_region_compute,
     )
 )
@@ -402,8 +449,9 @@ register(
         compute=_cuda_fused_compute,
         caps=Capabilities(
             multi_offset_fused=True, batch_grid=True, region_grid=True,
-            fused_quantize=True, device_kernel=True,
+            fused_quantize=True, device_kernel=True, sharded_partial=True,
         ),
+        local_partial=_cuda_fused_local_partial,
         region_compute=_cuda_fused_region_compute,
     )
 )
@@ -414,7 +462,9 @@ register(
         caps=Capabilities(
             multi_offset_fused=True, batch_grid=True, volumetric=True,
             volume_only=True, fused_quantize=True, device_kernel=True,
+            sharded_partial=True,
         ),
+        local_partial=_cuda_volume_local_partial,
         validate=_cuda_volume_validate,
     )
 )

@@ -35,6 +35,7 @@ __all__ = [
     "glcm_onehot",
     "glcm_multi",
     "glcm_blocked",
+    "local_partial_nd",
     "extract_regions",
     "glcm_windowed",
     "PAPER_PAIRS",
@@ -140,11 +141,46 @@ def glcm_scatter_batch(
     return counts.reshape(b, n_off, levels, levels).to(torch.int32)
 
 
-def _onehot(v: torch.Tensor, levels: int) -> torch.Tensor:
-    """(..., P) int → (..., P, L) f32 one-hot; a value outside [0, L) (the
-    -1 pad included) gives an all-zero row, so its vote drops."""
+def _onehot(v: torch.Tensor, levels: int, dtype=torch.float32) -> torch.Tensor:
+    """(..., P) int → (..., P, L) one-hot (f32 unless ``dtype``); a value
+    outside [0, L) (the -1 pad included) gives an all-zero row, so its vote
+    drops."""
     iota = torch.arange(levels, device=v.device)
-    return (v[..., None] == iota).to(torch.float32)
+    return (v[..., None] == iota).to(dtype)
+
+
+def local_partial_nd(
+    ext: torch.Tensor, levels: int, offset: tuple[int, ...], local_n: int
+) -> torch.Tensor:
+    """Partial GLCM of a leading-axis shard extended with halo slices, by the
+    one-hot matmul ``RᵀA`` (the plain version of the sharded hook of
+    ``core.distributed``).
+
+    ``ext`` is (*batch, local_n + offset[0], *rest) integer levels — a row
+    shard of an image for 2-D offsets, a depth slab of a volume for 3-D
+    offsets, each optionally under leading batch dims — with -1 sentinels
+    for out-of-input halo elements. The leading delta is realized by the
+    halo; the remaining (possibly negative) deltas are sliced within the
+    shard's resident planes. A vote with either side outside [0, L) drops.
+    Returns exact int32 (*batch, L, L) counts: the one-hots are float64,
+    whose integer sums are exact far past any int32 count.
+    """
+    lead = ext.ndim - len(offset)
+    d0 = offset[0]
+    assoc = ext.narrow(lead, 0, local_n)
+    ref = ext.narrow(lead, d0, local_n)
+    for ax, delta in enumerate(offset[1:], start=lead + 1):
+        size = ext.shape[ax]
+        if delta >= 0:
+            assoc = assoc.narrow(ax, 0, size - delta)
+            ref = ref.narrow(ax, delta, size - delta)
+        else:
+            assoc = assoc.narrow(ax, -delta, size + delta)
+            ref = ref.narrow(ax, 0, size + delta)
+    batch = ext.shape[:lead]
+    a = _onehot(assoc.reshape(*batch, -1), levels, torch.float64)
+    r = _onehot(ref.reshape(*batch, -1), levels, torch.float64)
+    return (r.mT @ a).to(torch.int32)
 
 
 def glcm_onehot(

@@ -264,7 +264,11 @@ def test_schemes_equal_reference(copies, quantized):
 def test_require_capabilities():
     spec = GLCMSpec(levels=8)
     p = tplan.compile_plan(spec, (9, 9), require=("multi_offset_fused",), device="cpu")
-    assert p.spec.scheme == "cuda_fused"  # first capable backend by name, as in repro
+    # First capable backend by name, leaving out the card's kernels on the CPU
+    # (on CUDA they come first).
+    assert p.spec.scheme == "onehot"
+    assert backends.resolve_scheme(spec, torch.device("cuda"),
+                                   require=("multi_offset_fused",)) == "cuda_fused"
     with pytest.raises(ValueError, match="lacks required capability"):
         tplan.compile_plan(spec.replace(scheme="scatter"), (9, 9),
                            require=("multi_offset_fused",), device="cpu")
