@@ -82,7 +82,25 @@ Phases, each printing one JSON line:
     trace, the Prometheus series and a shed. Prints per-workload
     latencies, the pad / launch / readback split, throughput per mode and
     the launch share of the replay.
-12. ``autotune``: ``core.autotune`` on the card with ``trials=3`` for
+12. ``lint`` (the plan-contract analyzer, ``repro_torch.analysis``): (a)
+    ``run_audit(device="cuda")`` over the whole registry — the reference's 14
+    cases on every backend that serves them, each plan recorded once on the
+    card — must find nothing and error nowhere, with all three self-checks
+    firing (a pre-quantize plan shows its int image, an mcc plan its
+    eigendecomposition, a plain version on the card trips
+    ``device-kernel-launches``); the one-hot schemes' integer votes under
+    ``accum="int"`` (int8 one-hots through ``torch._int_mm``) count bit for
+    bit as "scatter" on the card. (b) ``compile_plan(..., check="lint")`` of
+    the main path's untuned plans at the paper's sizes (features-4096,
+    glcm-16384, texture-map-4096, volume-2x256x512x512, stream-4096-w16) must
+    be clean, and a recorded call of each must show its kernel's launch and
+    no other; each plan's ``repro_plan_lint_ms`` is printed beside the
+    CUDA-event time of one plain call of it. (c) Two scratch backends on the
+    card must make the lint raise ``PlanContractError`` with exactly their
+    rule: one that hands a CUDA tensor to a plain version
+    (``device-kernel-launches``), one that calls ``.item()`` on a device
+    count (``no-host-callback``).
+13. ``autotune``: ``core.autotune`` on the card with ``trials=3`` for
     main-path workloads at the paper's sizes (``AUTOTUNE_WORKLOADS``:
     features-4096 with features, and glcm-16384), one line each: every candidate's
     µs, every skip and its reason, the winner, and the µs of the untuned
@@ -98,7 +116,7 @@ Phases, each printing one JSON line:
     CUDA-event pairs on the smooth input and on the tuner's random sample,
     and the ``copies`` sweep of ``glcm_vote`` (the paper's Table III) on the
     smooth 16384² image and on a random 4096² one.
-13. ``distributed``: multi-rank sharding (``core.distributed``). The parent
+14. ``distributed``: multi-rank sharding (``core.distributed``). The parent
     bins the 16384² smooth image, the smooth 256 x 512 x 512 volume, both
     volumes and the first 4096² texture to L = 32 (uniform, each over its
     own range) into uint8 level files, frees its stacks, and starts 4 gloo
@@ -155,7 +173,9 @@ import torch.multiprocessing
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.analysis import audit, op_lint  # noqa: E402
 from repro_torch.core import autotune  # noqa: E402
+from repro_torch.core import backends as _backends  # noqa: E402
 from repro_torch.core.backends import compute_regions  # noqa: E402
 from repro_torch.core.distributed import (  # noqa: E402
     glcm_auto_sharded,
@@ -1655,6 +1675,141 @@ def phase_serve(stack, vol, video: np.ndarray) -> dict:
 # 972 s on an H100, 781 s of it the volumes' plain candidates (PERF.md §6),
 # so the phase tunes the first two: features-4096 (97 s) and glcm-16384
 # (50 s), whose winner is not the untuned choice.
+# The main path's plans at the paper's sizes, linted on the card: name, spec,
+# shape, features, temporal window, the input dtype of the main path, and
+# the one kernel a call launches.
+LINT_PLANS = (
+    ("features-4096", GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform"),
+     STACK_SHAPE, True, None, torch.float32, "glcm_fused"),
+    ("glcm-16384", GLCMSpec(levels=LEVELS, pairs=((1, 45),), quantize="uniform"),
+     (16384, 16384), False, None, torch.float32, "glcm_vote"),
+    ("texture-map-4096", GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform",
+                                  region="window", region_shape=WINDOW,
+                                  region_stride=WINDOW_STRIDE),
+     STACK_SHAPE[1:], True, None, torch.float32, "glcm_window"),
+    ("volume-2x256x512x512", GLCMSpec(levels=LEVELS, pairs=VOLUME_PAIRS, quantize="uniform",
+                                      ndim=3),
+     (2,) + VOLUME_SHAPE, True, None, torch.float32, "glcm_volume"),
+    ("stream-4096-w16", GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform",
+                                 vrange=(0, 255)),
+     STACK_SHAPE[1:], True, STREAM_WINDOW, torch.uint8, "glcm_fused"),
+)
+LINT_DIRTY_SHAPE = (2, 480, 512)  # no side equal to L: counts never look like an image
+
+
+def _lint_ms_sum() -> float:
+    """The summed ``repro_plan_lint_ms`` observations of every scheme."""
+    fam = get_registry().snapshot().get("repro_plan_lint_ms", {"series": []})
+    return sum(s["sum"] for s in fam["series"])
+
+
+def _plain_fused_on_card(img, spec, quant=None):
+    """A backend that claims the card's kernels but counts with the fused
+    kernel's plain version on the CUDA tensor (a quiet fallback)."""
+    return glcm_fused_plain(img, spec.levels, spec.offsets(), quant=quant).to(torch.float32)
+
+
+def _item_on_card(img, spec, quant=None):
+    """A backend that launches the fused kernel, then reads a device count
+    on the host (a hidden sync)."""
+    offsets = spec.offsets()
+    counts = glcm_fused(img, levels=spec.levels, offsets=offsets,
+                        tile_h=default_tile_h(offsets), quant=quant)
+    require(counts.sum().item() > 0, "the dirty backend counted nothing")
+    return counts.to(torch.float32)
+
+
+def _dirty_lint(name: str, compute, rule: str) -> dict:
+    """Register ``compute`` as a device-kernel backend and require the lint
+    of its plan on the card to raise with exactly ``rule``."""
+    _backends.register(_backends.Backend(
+        name=name, compute=compute,
+        caps=_backends.Capabilities(multi_offset_fused=True, fused_quantize=True,
+                                    device_kernel=True)))
+    try:
+        spec = GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform", scheme=name)
+        try:
+            compile_plan(spec, LINT_DIRTY_SHAPE, check="lint")
+        except op_lint.PlanContractError as err:
+            rules = sorted({f.rule for f in err.findings})
+        else:
+            rules = []
+    finally:
+        _backends.unregister(name)
+    require(rules == [rule], f"dirty backend {name} fired {rules}, expected [{rule!r}]")
+    return {"backend": name, "fired": rules}
+
+
+def phase_lint() -> dict:
+    """See the module docstring (phase 12)."""
+    out = {}
+    # (a) The registry audit on the card, and integer votes on the card.
+    t0 = time.perf_counter()
+    report = audit.run_audit(device=DEV)
+    out["audit_s"] = time.perf_counter() - t0
+    out.update(audit_checked=len(report.checked), audit_skipped=len(report.skipped),
+               audit_findings=len(report.findings), audit_errors=len(report.errors),
+               audit_self_checks=report.self_checks)
+    if not report.ok:
+        emit({"phase": "lint", "audit_report": report.to_dict()})
+    require(report.ok, f"audit on the card: {len(report.findings)} finding(s), "
+                       f"{len(report.errors)} error(s)")
+    require(report.self_checks == ["dirty-int-image", "dirty-eigh", "dirty-plain-on-card"],
+            f"audit self-checks fired: {report.self_checks}")
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    int_votes = {}
+    for case in audit.audit_cases():
+        if case.spec.accum != "int" or case.temporal_window is not None:
+            continue
+        x = torch.randint(-1, case.spec.levels, case.shape, generator=gen, device=DEV,
+                          dtype=torch.int32)
+        want = compile_plan(case.spec.replace(scheme="scatter"), case.shape)(x)
+        for scheme in ("onehot", "blocked"):
+            for copies in (1, 3):
+                spec = case.spec.replace(scheme=scheme, copies=copies)
+                if audit._serves(_backends.get_backend(scheme), case) is not None:
+                    continue
+                err = float((compile_plan(spec, case.shape)(x) - want).abs().max())
+                require(err == 0, f"{scheme} int votes differ from scatter on {case.name}")
+                int_votes[f"{case.name}/{scheme}/R{copies}"] = err
+    out["int_votes_max_abs_err"] = int_votes
+
+    # (b) The main path's plans, linted at the paper's sizes.
+    plans = {}
+    for name, spec, shape, features, window, dtype, kernel in LINT_PLANS:
+        before = _lint_ms_sum()
+        plan = compile_plan(spec, shape, features=features, temporal_window=window,
+                            check="lint")
+        lint_ms = _lint_ms_sum() - before
+        require(plan.lint == (), f"{name}: lint findings {plan.lint}")
+        require(not plan.tuned, f"{name}: the plan is tuned; lint the untuned one")
+        record = op_lint.record_plan(plan, dtype)
+        _only(record.launches, (kernel,), f"{name} lint record")
+        require(record.launches[kernel] == 1, f"{name}: {record.launches}")
+        if dtype != torch.float32:  # the main path's own input dtype, linted too
+            require(op_lint.lint_plan(plan, dtype=dtype) == (),
+                    f"{name}: findings on {dtype} input")
+        x = op_lint.lint_input(plan, dtype)
+        if window is None:
+            call_ms = cuda_ms(lambda: plan(x), reps=3)
+        else:
+            state = plan.init_state()
+            call_ms = cuda_ms(lambda: plan.update(state, x), reps=3)
+        plans[name] = {"scheme": plan.spec.scheme, "lint_ms": lint_ms, "call_ms": call_ms,
+                       "lint_over_call": lint_ms / call_ms, "ops": len(record.ops),
+                       "launches": {k: n for k, n in record.launches.items() if n}}
+        del x, record
+    out["plans"] = plans
+
+    # (c) Dirty backends on the card must make the lint raise.
+    out["dirty"] = [
+        _dirty_lint("_smoke_plain_on_card", _plain_fused_on_card, "device-kernel-launches"),
+        _dirty_lint("_smoke_item_on_card", _item_on_card, "no-host-callback"),
+    ]
+    emit({"phase": "lint", **out})
+    return out
+
+
 AUTOTUNE_PATH = ROOT / "build" / "autotune.json"
 AUTOTUNE_TRIALS = 3
 AUTOTUNE_WORKLOADS = (
@@ -2207,6 +2362,7 @@ def main() -> int:
     del frames
     timed("pipeline", phase_pipeline, stack, main_run["feats"])
     timed("serve", phase_serve, stack, vol, video)
+    timed("lint", phase_lint)
     timed("autotune", phase_autotune, stack, big)
     shapes = timed("distributed_inputs", _distributed_inputs, stack, big, vol)
     # The ranks share the card: free the parent's stacks first.

@@ -17,7 +17,9 @@ persisted autotuner behind ``scheme="auto"``; ``repro_torch.distributed`` is
 ``launch`` (device meshes for it),
 ``serve`` (``GLCMEngine``, the continuous-batching texture-feature server),
 ``obs`` (tracer, metrics registry, flight recorder and the
-``python -m repro_torch.obs.report`` trace CLI), ``kernels`` (CUDA kernel
+``python -m repro_torch.obs.report`` trace CLI), ``analysis`` (the
+plan-contract analyzer behind ``compile_plan(check="lint")`` and the
+``python -m repro_torch.analysis.audit`` registry audit), ``kernels`` (CUDA kernel
 wrappers with their plain PyTorch versions, the nvcc build, offset tables
 and oracles) and ``data`` (synthetic textures and videos). CUDA sources
 live in ``csrc``.

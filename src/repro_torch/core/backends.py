@@ -9,8 +9,11 @@ for ``spec.ndim == 3`` — and ``spec`` is resolved (no "auto"). With
 ``quant=(lo, span)`` (python floats, or per-image (B,) tensors) the stack
 holds RAW pixels that the backend bins where it consumes them
 (``caps.fused_quantize``); no quantized full-size image is made. Counts come
-back as float32. Quantization ranges, symmetric/normalize and features are
-the plan's job (``core.plan``).
+back as float32: the one-hot schemes ("onehot", "blocked") vote in float32,
+or, under ``spec.accum == "int"``, in integers accumulated in int32 and
+widened only at the end, as the reference's do; every other backend counts
+in integers whatever the mode. Quantization ranges, symmetric/normalize
+and features are the plan's job (``core.plan``).
 
 Region specs (tiles, sliding windows) go through :func:`compute_regions`:
 a backend that declares ``caps.region_grid`` serves them natively through
@@ -55,6 +58,7 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
+from repro_torch.analysis.scopes import scope
 from repro_torch.core import native as _native
 from repro_torch.core.quantize import repeat_params
 from repro_torch.core.schemes import (
@@ -276,8 +280,9 @@ def _scatter_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Ten
 
 def _onehot_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
     return glcm_multi(
-        img, spec.levels, offsets=spec.offsets(), copies=spec.copies, quant=quant
-    )
+        img, spec.levels, offsets=spec.offsets(), copies=spec.copies, quant=quant,
+        int_votes=spec.accum == "int",
+    ).to(torch.float32)
 
 
 def _cuda_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
@@ -300,7 +305,8 @@ def _onehot_region_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> tor
     return glcm_windowed(
         img, spec.levels, spec.pairs, spec.region_shape, spec.strides,
         offsets=spec.offsets(), copies=spec.copies, quant=quant,
-    )
+        int_votes=spec.accum == "int",
+    ).to(torch.float32)
 
 
 def _blocked_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
@@ -308,11 +314,12 @@ def _blocked_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Ten
         raise ValueError("blocked backend does not support fused quantization")
     return torch.stack(
         [
-            glcm_blocked(img, spec.levels, offset=off, num_blocks=spec.num_blocks)
+            glcm_blocked(img, spec.levels, offset=off, num_blocks=spec.num_blocks,
+                         int_votes=spec.accum == "int")
             for off in spec.offsets()
         ],
         dim=-3,
-    )
+    ).to(torch.float32)
 
 
 def _blocked_validate(spec: GLCMSpec, shape: tuple[int, ...]) -> None:
@@ -383,10 +390,11 @@ def _native_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tens
     # The registry contract for the host-native backend (the temporal
     # delta and the region fallback come through here): NumPy counts of
     # the stack, back on its device as float32. A batch plan calls host_fn
-    # directly instead.
-    q = _native.quantize_stack(img.cpu().numpy(), spec, _native_quant(quant))
-    counts = _native.counts_pairs(q, spec.levels, spec.offsets())
-    return torch.from_numpy(counts.astype(np.float32)).to(img.device)
+    # directly instead. The round trip is the analyzer's "host" scope.
+    with scope("host"):
+        q = _native.quantize_stack(img.cpu().numpy(), spec, _native_quant(quant))
+        counts = _native.counts_pairs(q, spec.levels, spec.offsets())
+        return torch.from_numpy(counts.astype(np.float32)).to(img.device)
 
 
 def _cuda_volume_validate(spec: GLCMSpec, shape: tuple[int, ...]) -> None:

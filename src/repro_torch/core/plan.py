@@ -60,9 +60,13 @@ time in ``repro_plan_compile_ms`` and, with a live tracer, records a
 temporal plans alike. ``bucket_sizes`` / ``pick_bucket`` give a batched
 server's launch stack sizes.
 
-Not in this package yet, and rejected with NotImplementedError naming the
-slice of the port that brings it: ``check="lint"`` (plan-contract
-analyzer). ``spec.batch_mode`` is accepted and ignored.
+``check="lint"`` (or ``REPRO_PLAN_LINT=1``) runs the plan-contract
+analyzer (:mod:`repro_torch.analysis`) on the plan: one recorded call of it
+on a seeded input, on its own device, linted against the rules its backend's
+capabilities and its spec imply. The verdict is cached on the plan
+(``plan.lint``); findings raise ``PlanContractError``. Each lint observes
+``repro_plan_lint_ms{scheme}`` and, with a live tracer, records a
+``plan.lint`` span. ``spec.batch_mode`` is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
+import os
 import threading
 import time
 from collections.abc import Callable
@@ -77,6 +82,7 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
+from repro_torch.analysis.scopes import scope
 from repro_torch.core import backends as _backends
 from repro_torch.core import native as _native
 from repro_torch.core.haralick import FEATURE_NAMES, haralick_features
@@ -125,6 +131,7 @@ class GLCMPlan:
     fused_quantize: bool = False   # quantization is binned inside the count
     host_native: bool = False      # counts with NumPy on the host
     tuned: object = None           # the autotune.TunedChoice applied, if any
+    lint: tuple | None = None      # the lint verdict (Findings), once linted
 
     def __call__(self, img) -> torch.Tensor:
         return self.fn(img)
@@ -256,6 +263,10 @@ def _quantizer(spec: GLCMSpec) -> Callable[[torch.Tensor], torch.Tensor] | None:
     return lambda im: quantize_equalized(im, spec.levels)
 
 
+def _lint_enabled_by_env() -> bool:
+    return os.environ.get("REPRO_PLAN_LINT", "").lower() in ("1", "true", "yes")
+
+
 def _cache_put(key, plan):
     """Insert ``plan`` under ``key`` (first writer wins), enforce the LRU
     bound, and return the cached instance."""
@@ -287,6 +298,34 @@ def _note_compile(resolved: GLCMSpec, shape, kind: str, t_build: float,
                     kind=kind, ms=round(ms, 3))
 
 
+def _ensure_linted(plan):
+    """Lint ``plan`` once, cache the verdict on the entry, raise on findings.
+
+    The verdict rides the cached plan (``plan.lint``), not the cache key: a
+    plan compiled without ``check`` and later requested with
+    ``check="lint"`` is linted on that hit, and every later linted lookup
+    replays the stored verdict without running the plan.
+    """
+    from repro_torch.analysis import op_lint  # late: the analyzer imports plan
+
+    if plan.lint is None:
+        tr = _obs_trace.get_tracer()
+        t_tr = tr.clock() if tr.enabled else 0.0
+        t0 = time.perf_counter()
+        findings = tuple(op_lint.lint_plan(plan))
+        lint_ms = (time.perf_counter() - t0) * 1e3
+        _obs_metrics.get_registry().histogram(
+            "repro_plan_lint_ms", "plan-contract lint time (ms)",
+            scheme=plan.spec.scheme).observe(lint_ms)
+        if tr.enabled:
+            tr.add_span("plan.lint", t_tr, tr.clock(), scheme=plan.spec.scheme,
+                        findings=len(findings), ms=round(lint_ms, 3))
+        object.__setattr__(plan, "lint", findings)
+    if plan.lint:
+        raise op_lint.PlanContractError(plan.lint)
+    return plan
+
+
 def compile_plan(
     spec: GLCMSpec,
     shape: tuple[int, ...],
@@ -313,12 +352,18 @@ def compile_plan(
     the ring-buffered delta of the frame leaving the ``w``-frame window, and
     symmetric/normalize/Haralick apply lazily on the accumulated signed
     int32 counts, bit-exact against a full recompute of the window.
+
+    ``check="lint"`` also lints the plan (:mod:`repro_torch.analysis`): it
+    runs the plan once on a seeded input of its shape, records the aten ops,
+    scopes and kernel launches of that call, and raises
+    ``PlanContractError`` on any finding. The verdict is cached on the plan
+    entry, so later linted lookups cost nothing. ``REPRO_PLAN_LINT=1`` turns
+    the check on for every call that does not pass ``check``; ``check=""``
+    opts one call back out.
     """
-    if check == "lint":
-        raise NotImplementedError(
-            'check="lint" comes with the plan-contract analyzer slice of the port'
-        )
-    if check not in (None, ""):
+    if check is None and _lint_enabled_by_env():
+        check = "lint"
+    if check not in (None, "", "lint"):
         raise ValueError(f"unknown check mode {check!r}; expected 'lint'")
     device = resolve_device(device)
     shape = tuple(int(s) for s in shape)
@@ -364,7 +409,7 @@ def compile_plan(
             result="hit").inc()
         if tracer.enabled:
             tracer.event("plan.cache_hit", scheme=plan.spec.scheme, shape=str(shape))
-        return plan
+        return _ensure_linted(plan) if check == "lint" else plan
 
     # Cache miss: time the plan build (backend resolution, validation and
     # the program's closures) for the compile span and histogram.
@@ -426,7 +471,8 @@ def compile_plan(
         if resolved.normalize:
             mats = mats / mats.sum(dim=(-2, -1), keepdim=True).clamp_min(1.0)
         if features:
-            mats = haralick_features(mats, select=select)
+            with scope("tail"):  # float64 inside, by design (core.haralick)
+                mats = haralick_features(mats, select=select)
         return mats
 
     def prepare(stack: torch.Tensor):
@@ -466,7 +512,8 @@ def compile_plan(
             fused_quantize=fused, host_native=backend.caps.host_native, tuned=tuned,
         )
         _note_compile(resolved, shape, "stream", t_build, t_build_tr)
-        return _cache_put(key, plan)
+        plan = _cache_put(key, plan)
+        return _ensure_linted(plan) if check == "lint" else plan
 
     def run(img) -> torch.Tensor:
         x = as_input(img)
@@ -477,21 +524,23 @@ def compile_plan(
         return mats if batched else mats[0]
 
     def run_host(img) -> torch.Tensor:
-        # NumPy counts on the host; only the tail runs on the plan's device.
-        x = img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
-        if tuple(x.shape) != shape:
-            raise ValueError(f"plan compiled for shape {shape}, got {tuple(x.shape)}")
-        stack = x if batched else x[None]
-        qargs = None
-        if fused:
-            identity = x.dtype == np.uint8 and is_identity_quantize(
-                torch.uint8, resolved.levels, vmin, vmax)
-            if not identity:  # else the values already are the levels
-                qargs = _native.uniform_params_np(stack, vmin, vmax)
-        elif quant is not None:
-            stack = torch.stack([quant(im) for im in torch.from_numpy(stack)]).numpy()
-        counts = backend.host_fn(stack, resolved, qargs)
-        mats = torch.from_numpy(np.asarray(counts, np.float32)).to(device)
+        # NumPy counts on the host, the analyzer's "host" scope; only the
+        # tail runs on the plan's device.
+        with scope("host"):
+            x = img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
+            if tuple(x.shape) != shape:
+                raise ValueError(f"plan compiled for shape {shape}, got {tuple(x.shape)}")
+            stack = x if batched else x[None]
+            qargs = None
+            if fused:
+                identity = x.dtype == np.uint8 and is_identity_quantize(
+                    torch.uint8, resolved.levels, vmin, vmax)
+                if not identity:  # else the values already are the levels
+                    qargs = _native.uniform_params_np(stack, vmin, vmax)
+            elif quant is not None:
+                stack = torch.stack([quant(im) for im in torch.from_numpy(stack)]).numpy()
+            counts = backend.host_fn(stack, resolved, qargs)
+            mats = torch.from_numpy(np.asarray(counts, np.float32)).to(device)
         mats = tail(mats)
         return mats if batched else mats[0]
 
@@ -502,4 +551,5 @@ def compile_plan(
         host_native=host, tuned=tuned,
     )
     _note_compile(resolved, shape, "plan", t_build, t_build_tr)
-    return _cache_put(key, plan)
+    plan = _cache_put(key, plan)
+    return _ensure_linted(plan) if check == "lint" else plan

@@ -149,6 +149,43 @@ def _onehot(v: torch.Tensor, levels: int, dtype=torch.float32) -> torch.Tensor:
     return (v[..., None] == iota).to(dtype)
 
 
+def _vote_dtype(int_votes: bool, device: torch.device) -> torch.dtype:
+    """The one-hot vote dtype: float32 (exact while a cell stays below 2²⁴),
+    or, for ``int_votes``, an integer whose matmul accumulates in int32 —
+    int32 on the CPU, whose ``bmm`` takes it, and int8 on the card, where
+    PyTorch's only integer matmul is ``torch._int_mm`` (int8 × int8 → int32)."""
+    if not int_votes:
+        return torch.float32
+    return torch.int8 if device.type == "cuda" else torch.int32
+
+
+def _votes(R: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """The vote matmul of (N, P, L) one-hot ref and assoc matrices →
+    (N, L, L) counts ``Σ_p R_pᵀ A_p``, in the one-hots' dtype (int32 for
+    int8 one-hots)."""
+    if R.dtype == torch.int8:
+        return _int_mm_votes(R, A)
+    return torch.einsum("npi,npj->nij", R, A)
+
+
+def _int_mm_votes(R: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """``_votes`` for int8 one-hots by ``torch._int_mm``, one product per
+    item: it takes 2-D operands only, with more than 16 rows and a
+    contraction and column count that are multiples of 8, so the one-hots
+    are zero-padded to that (a zero row or column votes nowhere)."""
+    n, p, levels = R.shape
+    up8 = lambda v: -(-v // 8) * 8  # noqa: E731
+    rows, cols, k = max(24, up8(levels)), up8(levels), up8(max(p, 1))
+    rt = torch.zeros((n, rows, k), dtype=torch.int8, device=R.device)
+    rt[:, :levels, :p] = R.transpose(1, 2)
+    at = torch.zeros((n, k, cols), dtype=torch.int8, device=A.device)
+    at[:, :p, :levels] = A
+    out = torch.empty((n, levels, levels), dtype=torch.int32, device=R.device)
+    for i in range(n):
+        out[i] = torch._int_mm(rt[i], at[i])[:levels, :levels]
+    return out
+
+
 def local_partial_nd(
     ext: torch.Tensor, levels: int, offset: tuple[int, ...], local_n: int
 ) -> torch.Tensor:
@@ -190,14 +227,17 @@ def glcm_onehot(
     *,
     copies: int = 1,
     quant=None,
+    int_votes: bool = False,
 ) -> torch.Tensor:
     """Scheme 2: the GLCM is the matmul ``RᵀA`` of the one-hot ref/assoc
     matrices. ``copies`` (the paper's R) splits the pair stream into R
     sub-streams with private (L, L) sub-accumulators, summed at the end.
 
-    ``img`` is (*spatial) → (L, L) or (B, *spatial) → (B, L, L), float32
-    counts (exact: every partial sum is an integer below 2²⁴ at the sizes
-    this CPU path serves). Symmetric/normalize are the plan's tail.
+    ``img`` is (*spatial) → (L, L) or (B, *spatial) → (B, L, L): float32
+    counts, exact while every cell stays below 2²⁴, or with ``int_votes``
+    integer votes accumulated in exact int32 (the reference's
+    ``accum="int"``; see ``_vote_dtype``). Symmetric/normalize are the
+    plan's tail.
     """
     if copies < 1:
         raise ValueError(f"copies (R) must be >= 1, got {copies}")
@@ -213,9 +253,12 @@ def glcm_onehot(
     if pad:  # dead votes pad the stream to a multiple of R
         a = torch.nn.functional.pad(a, (0, pad), value=-1)
         r = torch.nn.functional.pad(r, (0, pad), value=-1)
-    A = _onehot(a.reshape(b, copies, -1), levels)  # (B, R, P/R, L)
-    R = _onehot(r.reshape(b, copies, -1), levels)
-    glcm = torch.einsum("bcpi,bcpj->bcij", R, A).sum(dim=1)  # Σ_ρ R_ρᵀ A_ρ
+    dt = _vote_dtype(int_votes, stack.device)
+    A = _onehot(a.reshape(b * copies, -1), levels, dt)  # (B·R, P/R, L)
+    R = _onehot(r.reshape(b * copies, -1), levels, dt)
+    glcm = _votes(R, A).reshape(b, copies, levels, levels).sum(dim=1)  # Σ_ρ R_ρᵀ A_ρ
+    if int_votes:
+        glcm = glcm.to(torch.int32)  # the sum over copies widens to int64
     return glcm if batched else glcm[0]
 
 
@@ -227,15 +270,18 @@ def glcm_multi(
     offsets: tuple[tuple[int, ...], ...] | None = None,
     copies: int = 1,
     quant=None,
+    int_votes: bool = False,
 ) -> torch.Tensor:
     """GLCMs for several offsets: ``pairs`` are 2-D (d, θ) tuples;
     ``offsets`` (explicit (dy, dx) / (dz, dy, dx) tuples) overrides them.
-    Returns (n_off, L, L), batch axis leading if present."""
+    Returns (n_off, L, L), batch axis leading if present; ``int_votes`` as
+    in ``glcm_onehot``."""
     if offsets is None:
         offsets = tuple(glcm_offsets(d, t) for d, t in pairs)
     return torch.stack(
         [
-            glcm_onehot(img, levels, off, copies=copies, quant=quant)
+            glcm_onehot(img, levels, off, copies=copies, quant=quant,
+                        int_votes=int_votes)
             for off in offsets
         ],
         dim=-3,
@@ -306,6 +352,7 @@ def glcm_windowed(
     offsets: tuple[tuple[int, ...], ...] | None = None,
     copies: int = 1,
     quant=None,
+    int_votes: bool = False,
 ) -> torch.Tensor:
     """Per-region GLCMs: one region extraction, then the one-hot matmul
     ``RᵀA`` per window and copy, with the flat window grid as the batch.
@@ -315,7 +362,8 @@ def glcm_windowed(
     (``offsets`` carries the 3-D directions). Pairs are counted strictly
     within each region. With ``quant=(lo, span)`` the patches are raw and
     every window bins with its image's range (per-image (B,) tensors repeat
-    over the image's windows). float32 counts.
+    over the image's windows). float32 counts, or int32 with ``int_votes``
+    (as in ``glcm_onehot``).
     """
     if copies < 1:
         raise ValueError(f"copies (R) must be >= 1, got {copies}")
@@ -329,7 +377,8 @@ def glcm_windowed(
         quant = repeat_params(quant, flat.shape[0])
     else:
         flat = flat.to(torch.int32)
-    mats = glcm_multi(flat, levels, offsets=offsets, copies=copies, quant=quant)
+    mats = glcm_multi(flat, levels, offsets=offsets, copies=copies, quant=quant,
+                      int_votes=int_votes)
     return mats.reshape(lead + (len(offsets), levels, levels))
 
 
@@ -346,6 +395,7 @@ def glcm_blocked(
     *,
     offset: tuple[int, ...] | None = None,
     num_blocks: int = 4,
+    int_votes: bool = False,
 ) -> torch.Tensor:
     """Scheme 3 (paper Eq. (7)–(9)) on one device: the input is split into
     ``num_blocks`` blocks along its leading spatial axis (row blocks for
@@ -356,8 +406,8 @@ def glcm_blocked(
     by a one-hot matmul over the batch.
 
     ``img`` is (*spatial) → (L, L) or (B, *spatial) → (B, L, L), float32
-    counts. The leading extent must divide into ``num_blocks`` blocks of at
-    least ``d0`` slices.
+    counts, or int32 with ``int_votes`` (as in ``glcm_onehot``). The leading
+    extent must divide into ``num_blocks`` blocks of at least ``d0`` slices.
     """
     if offset is None:
         off = glcm_offsets(d, theta)
@@ -379,14 +429,16 @@ def glcm_blocked(
         raise ValueError(f"halo {d0} exceeds block extent {bh}")
     # F.pad lists the last axis first: pad only the trailing end of axis 1.
     padded = torch.nn.functional.pad(stack, (0, 0) * (nd - 1) + (0, d0), value=-1)
-    glcm = torch.zeros((b, levels, levels), dtype=torch.float32, device=stack.device)
+    dt = _vote_dtype(int_votes, stack.device)
+    glcm = torch.zeros((b, levels, levels),
+                       dtype=torch.int32 if int_votes else torch.float32, device=stack.device)
     for i in range(num_blocks):
         block = padded[:, i * bh: (i + 1) * bh + d0]
         assoc, ref = pair_planes_nd(block, off)
         a = assoc.reshape(b, -1).to(torch.int64)
         r = ref.reshape(b, -1).to(torch.int64)
         valid = (a >= 0) & (r >= 0)
-        A = _onehot(torch.where(valid, a, -1), levels)
-        R = _onehot(torch.where(valid, r, -1), levels)
-        glcm += torch.einsum("bpi,bpj->bij", R, A)
+        A = _onehot(torch.where(valid, a, -1), levels, dt)
+        R = _onehot(torch.where(valid, r, -1), levels, dt)
+        glcm += _votes(R, A)
     return glcm if batched else glcm[0]

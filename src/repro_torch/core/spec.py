@@ -40,9 +40,11 @@ __all__ = [
 # (already quantized), "uniform" rebins linearly, "equalized" equal-population.
 QUANTIZE_MODES = (None, "uniform", "equalized")
 
-# Valid ``accum`` (vote/accumulator dtype) modes, kept for parity with the
-# reference spec.  Every backend of this package counts in exact integers
-# whatever the mode, so the counts are the same for all three.
+# Valid ``accum`` (vote/accumulator dtype) modes, as in the reference spec.
+# "int" makes the one-hot schemes ("onehot", "blocked") vote in integers
+# accumulated in int32; otherwise they vote in float32, exact while a cell
+# stays below 2**24. Every other backend counts in integers whatever the
+# mode, so the counts are the same for all three.
 ACCUM_MODES = ("auto", "int", "float32")
 
 # Valid ``batch_mode`` modes of the reference's TPU kernels ("grid": batch on

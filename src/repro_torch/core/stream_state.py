@@ -43,9 +43,10 @@ reuses the plan's fused quantize→vote path, CUDA kernels included) /
 ``rolling(video)`` (a loop of ``update`` over the T frames, the counterpart of
 the reference's ``lax.scan``), with normalize / symmetric / Haralick applied
 lazily on the accumulated counts. Checkpoints: ``state_dict`` /
-``from_state_dict`` and ``save`` / ``load`` (npz). The reference's
-``state_struct`` exists for JAX tracing and linting only; it comes with the
-plan-contract analyzer slice of the port.
+``from_state_dict`` and ``save`` / ``load`` (npz). ``state_struct()`` gives
+the carry's shapes and dtypes as ``meta`` tensors, allocating nothing: the
+plan-contract analyzer's ``stream-signed-accum`` rule reads it
+(``repro_torch.analysis``).
 """
 
 from __future__ import annotations
@@ -150,6 +151,7 @@ class GLCMStreamPlan:
     fused_quantize: bool = False
     host_native: bool = False
     tuned: object = None  # the autotune.TunedChoice applied, if any
+    lint: tuple | None = None  # the lint verdict (Findings), once linted
 
     def update_fn(
         self, state: GLCMStreamState, frame: torch.Tensor
@@ -161,6 +163,15 @@ class GLCMStreamPlan:
     def init_state(self) -> GLCMStreamState:
         return init_state(self.window, self.grid, self.spec.n_pairs, self.spec.levels,
                           device=self.device)
+
+    def state_struct(self) -> GLCMStreamState:
+        """The carry's shapes and dtypes as ``meta`` tensors (nothing is
+        allocated): counts (*grid, n_pairs, L, L), ring (window, *grid,
+        n_pairs, L, L), pos and seen (), all int32."""
+        cell = tuple(self.grid) + (self.spec.n_pairs, self.spec.levels, self.spec.levels)
+        meta = lambda shape: torch.empty(shape, dtype=torch.int32, device="meta")  # noqa: E731
+        return GLCMStreamState(counts=meta(cell), ring=meta((self.window,) + cell),
+                               pos=meta(()), seen=meta(()))
 
     def update(self, state: GLCMStreamState, frame) -> tuple[GLCMStreamState, torch.Tensor]:
         """One online step: consume ``frame``, return the advanced state and

@@ -21,8 +21,10 @@ Counterparts of the TPU kernels of ``repro/kernels/glcm_kernel.py``:
     (CUDA source: ``csrc/glcm_volume.cu``; plain version: ``glcm_volume_plain``)
 
 Each wrapper checks its arguments, then dispatches on the device of the
-tensor it was given: on the CPU it computes the plain version; on a CUDA
-tensor it launches the kernel, or raises — it never falls back. Each keeps a
+tensor it was given: on the CPU it computes the plain version, inside the
+analyzer's ``kernel:<name>`` scope (``analysis.scopes``, the counterpart of
+the ``pallas_call`` boundary); on a CUDA tensor it launches the kernel, or
+raises — it never falls back. Each keeps a
 launch count, a plain int attribute (``glcm_vote.launches``), raised by one
 at each kernel launch and nowhere else.
 
@@ -36,6 +38,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis.scopes import scope
 from repro_torch.core.quantize import assert_levels, repeat_params
 from repro_torch.core.schemes import glcm_scatter_batch
 from repro_torch.kernels import build
@@ -141,7 +144,8 @@ def glcm_vote(
     a = assoc if batched else assoc[None]
     r = ref if batched else ref[None]
     if _check_device(a, "glcm_vote") == "cpu":
-        out = glcm_vote_plain(a, r, levels)
+        with scope("kernel:glcm_vote"):
+            out = glcm_vote_plain(a, r, levels)
     else:
         out = _launch_vote(a, r, levels, chunk, copies)
     return out if batched else out[0]
@@ -244,7 +248,8 @@ def glcm_fused(
     batched = img.ndim == 3
     stack = img if batched else img[None]
     if _check_device(stack, "glcm_fused") == "cpu":
-        out = glcm_fused_plain(stack, levels, offsets, quant=quant)
+        with scope("kernel:glcm_fused"):
+            out = glcm_fused_plain(stack, levels, offsets, quant=quant)
     else:
         out = _launch_fused(stack, levels, offsets, tile_h, copies, quant)
     return out if batched else out[0]
@@ -445,8 +450,9 @@ def glcm_window(
         if not (0 <= dy < rh) or abs(dx) >= rw:
             raise ValueError(f"offset (dy={dy}, dx={dx}) does not fit region ({rh}, {rw})")
     if _check_device(windows, "glcm_window") == "cpu":
-        return glcm_window_plain(x, levels, offsets, region_shape=region_shape, stride=stride,
-                                 quant=quant)
+        with scope("kernel:glcm_window"):
+            return glcm_window_plain(x, levels, offsets, region_shape=region_shape,
+                                     stride=stride, quant=quant)
     out = _launch_window(x, region_shape, stride, levels, offsets, copies, quant)
     return out if batched else out[0]
 
@@ -538,7 +544,8 @@ def glcm_volume(
     batched = vol.ndim == 4
     stack = vol if batched else vol[None]
     if _check_device(stack, "glcm_volume") == "cpu":
-        out = glcm_volume_plain(stack, levels, offsets, quant=quant)
+        with scope("kernel:glcm_volume"):
+            out = glcm_volume_plain(stack, levels, offsets, quant=quant)
     else:
         out = _launch_volume(stack, levels, offsets, slab_d, copies, quant)
     return out if batched else out[0]

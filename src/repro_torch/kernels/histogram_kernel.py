@@ -15,7 +15,7 @@ sub-histograms in shared memory, merged with atomics.
 
 As in ``glcm_kernel``, the wrapper checks its arguments and dispatches on
 the device of the tensor it was given: on the CPU it computes the plain
-version; on a CUDA tensor it launches the kernel, or raises — it never
+version (in the analyzer's ``kernel:histogram`` scope); on a CUDA tensor it launches the kernel, or raises — it never
 falls back. ``histogram.launches`` is raised by one at each kernel launch
 and nowhere else.
 """
@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis.scopes import scope
 from repro_torch.kernels.glcm_kernel import _check_device, _check_launch, _function
 
 __all__ = ["histogram", "histogram_plain"]
@@ -62,7 +63,8 @@ def histogram(
     if chunk % copies:
         raise ValueError(f"chunk ({chunk}) must be divisible by copies ({copies})")
     if _check_device(values, "histogram") == "cpu":
-        return histogram_plain(values, levels)
+        with scope("kernel:histogram"):
+            return histogram_plain(values, levels)
     return _launch_histogram(values, levels, chunk, copies)
 
 

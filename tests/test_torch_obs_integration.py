@@ -4,8 +4,8 @@ recorder firing on shed/dispatch failures, plan-cache instrumentation, and
 the ``repro_torch.obs.report`` CLI.
 
 Counterparts of ``tests/test_obs_integration.py``, on the CPU
-(``device="cpu"``). The reference's plan-lint test has no counterpart
-yet: ``check="lint"`` still raises NotImplementedError here (tested). Its
+(``device="cpu"``), the plan-lint test included (``check="lint"`` records a
+``plan.lint`` span and observes ``repro_plan_lint_ms``). The reference's
 autotune test's counterpart is in ``test_torch_autotune.py``. One more test
 holds the port's engine to the reference engine: the same traffic on the
 same virtual clock gives the same span trees and the same ``repro_serve_*``
@@ -275,16 +275,24 @@ def test_stream_plan_compile_and_cache_hit_instrumented(tracer):
 
 
 def test_plan_lint_still_not_implemented(tracer):
-    """``check="lint"`` comes with the plan-contract analyzer slice: it
-    raises before any lookup, so it records no span and counts nothing."""
+    """``check="lint"`` is instrumented as in the reference: one
+    ``plan.lint`` span with its ``findings`` and ``ms``, one observation of
+    ``repro_plan_lint_ms{scheme}``; a later linted lookup replays the cached
+    verdict and records neither again."""
     plan_cache_clear()
     reg = get_registry()
     reg.clear()
     spec = GLCMSpec(levels=8, pairs=((1, 0),))
-    with pytest.raises(NotImplementedError, match="lint"):
-        compile_plan(spec, (16, 16), check="lint", device="cpu")
-    assert not [s for s in tracer.spans() if s.name.startswith("plan.")]
-    assert "repro_plan_cache_lookups_total" not in reg.snapshot()
+    compile_plan(spec, (16, 16), check="lint", device="cpu")
+    lint = [s for s in tracer.spans() if s.name == "plan.lint"]
+    assert len(lint) == 1
+    assert lint[0].dur >= 0.0 and lint[0].attrs["findings"] == 0
+    assert lint[0].attrs["scheme"] == "onehot" and lint[0].attrs["ms"] >= 0.0
+    series = reg.snapshot()["repro_plan_lint_ms"]["series"]
+    assert [(s["labels"], s["count"]) for s in series] == [({"scheme": "onehot"}, 1)]
+    compile_plan(spec, (16, 16), check="lint", device="cpu")
+    assert len([s for s in tracer.spans() if s.name == "plan.lint"]) == 1
+    assert reg.snapshot()["repro_plan_lint_ms"]["series"][0]["count"] == 1
 
 
 # ---------------------------------------------------------------------------

@@ -265,8 +265,9 @@ def test_compile_plan_validates_temporal_args():
             tplan.compile_plan(spec, SHAPE, temporal_window=bad, device=CPU)
     with pytest.raises(ValueError, match="unbatched frames"):
         tplan.compile_plan(spec, (2, *SHAPE), temporal_window=WINDOW, device=CPU)
-    with pytest.raises(NotImplementedError, match="lint"):
-        tplan.compile_plan(spec, SHAPE, temporal_window=WINDOW, check="lint", device=CPU)
+    # A temporal plan lints clean (its recorded update step and its carry).
+    plan = tplan.compile_plan(spec, SHAPE, temporal_window=WINDOW, check="lint", device=CPU)
+    assert isinstance(plan, GLCMStreamPlan) and plan.lint == ()
 
 
 def test_stream_plans_cache_separately_from_batch_plans():
