@@ -142,6 +142,27 @@ Phases, each printing one JSON line:
     to the card, the halo exchange, the kernel, the all_reduce; host ms and
     CUDA-event ms); and the one-process call and kernel.
 
+15. ``lm`` (the LM model core and its serving engine, ``repro_torch.models``
+    and ``serve.engine.Engine``; plain PyTorch on the card, no kernel of
+    ``csrc``): smollm-135m at full width as published (30 layers, d 576, 9 /
+    3 heads, d_ff 1536, vocab 49 152, float32 parameters from a seeded
+    ``torch.Generator`` on the card, bfloat16 compute): prefill 8 x 4096
+    (CUDA events, tokens/s, peak allocation), ``Engine.generate`` at B = 8
+    and 64 with 512-token prompts and 64 new tokens (prefill ms and each
+    decode step's ms by CUDA events, decode tokens/s, and one step's kernel
+    launches and busy time from ``torch.profiler`` beside its aten ops). Checks
+    (``LM_*`` tolerances): float32 on the card against float32 on the CPU
+    with the same weights (prefill at B = 1, T = 1100, the chunked path with a
+    padded last chunk, and three teacher-forced decode steps); a float32
+    greedy ``Engine.generate`` whose every step's logits match one forward
+    over the generated sequence and whose every token is that forward's
+    argmax; bfloat16 against float32 prefill logits. mamba2-130m at full
+    width: prefill 4 x 2048, 16 decode steps, the greedy check in float32.
+    The other families reduced (hybrid, MoE with both dispatches and arctic's
+    dense residual, encoder-decoder, the int8 KV cache): one
+    ``Engine.generate`` each on the card against the same call on the CPU.
+    ``python3 chip_smoke.py lm`` runs the device and ``lm`` phases alone.
+
 The store of autotuner winners is ``build/autotune.json``
 (``REPRO_TORCH_AUTOTUNE_PATH``), deleted before any plan is compiled, so
 every phase before ``autotune`` runs the untuned "auto" choice.
@@ -155,6 +176,7 @@ directory holding this script and nothing else of the repo.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -174,6 +196,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.analysis import audit, op_lint  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import autotune  # noqa: E402
 from repro_torch.core import backends as _backends  # noqa: E402
 from repro_torch.core.backends import compute_regions  # noqa: E402
@@ -213,6 +236,9 @@ from repro_torch.kernels.glcm_kernel import (  # noqa: E402
 from repro_torch.kernels.histogram_kernel import histogram, histogram_plain  # noqa: E402
 from repro_torch.kernels.ops import default_slab_d, default_tile_h  # noqa: E402
 from repro_torch.launch.mesh import make_compat_mesh, make_host_mesh  # noqa: E402
+from repro_torch.models import build_model, describe  # noqa: E402
+from repro_torch.models.common import param_count  # noqa: E402
+from repro_torch.models.model import model_module  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     DIRECTIONS_3D,
     glcm_offsets,
@@ -222,7 +248,13 @@ from repro_torch.kernels.ref import (  # noqa: E402
 from repro_torch.obs.metrics import get_registry  # noqa: E402
 from repro_torch.obs.report import load_trace, validate_chrome  # noqa: E402
 from repro_torch.obs.trace import Tracer, set_tracer  # noqa: E402
-from repro_torch.serve.engine import GLCMEngine, GLCMServeConfig, QueueFullError  # noqa: E402
+from repro_torch.serve.engine import (  # noqa: E402
+    Engine,
+    GLCMEngine,
+    GLCMServeConfig,
+    QueueFullError,
+    ServeConfig,
+)
 
 # NVIDIA H100 SXM data sheet: device memory rate and the float32 rate outside
 # the tensor cores (the table has no int32 rate; the kernels' integer adds
@@ -2311,6 +2343,333 @@ def phase_distributed(shapes: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# lm: the LM model core and its serving engine (ROADMAP item 18)
+# ---------------------------------------------------------------------------
+
+# smollm-135m at full width, as published (bfloat16 compute, float32
+# parameters): prefill 8 x 4096 (sdpa_chunked over 4 chunks of 1024), then
+# Engine.generate at B = 8 and 64 with 512-token prompts and 64 new tokens.
+LM_ARCH = "smollm-135m"
+LM_PREFILL = (8, 4096)
+LM_GENERATE = ((8, 512, 64), (64, 512, 64))        # (B, prompt, new)
+LM_S_CACHE = 640
+# Check 1: float32 compute, the same weights on the card and on the CPU,
+# prefill at B = 1, T = 1100 (the chunked path with a padded last chunk) and
+# three teacher-forced decode steps; logits within LM_F32_ATOL + LM_F32_RTOL
+# of the largest |logit| (the summation order differs, every op is float32).
+LM_CHECK_T = 1100
+LM_F32_ATOL, LM_F32_RTOL = 1e-4, 1e-4
+# Check 2: Engine.generate greedy in float32 on the card against one forward
+# over the generated sequence: every step's logits within LM_F32_ATOL +
+# LM_F32_RTOL · max|logit|, every chosen token the forward's argmax or within
+# that tolerance of its max.
+LM_GREEDY = (4, 256, 16)
+# Check 3: bfloat16 compute against float32 on the card, the prefill logits
+# at B = 1, T = LM_CHECK_T: max |Δ| / max |logit| below LM_BF16_REL.
+LM_BF16_REL = 0.05
+# mamba2-130m at full width: prefill 4 x 2048, 16 decode steps, check 2 in
+# float32.
+LM_SSM_ARCH = "mamba2-130m"
+LM_SSM = (4, 2048, 16)
+# The other families, reduced (cfg.reduced()): one Engine.generate each on
+# the card and on the CPU, the same weights; logits within LM_REDUCED_ATOL,
+# tokens equal (or, where they part, the CPU's top-2 margin at that step
+# within the tolerance).
+LM_REDUCED = (
+    ("hybrid", "hymba-1.5b", {}),
+    ("moe_einsum", "mixtral-8x7b", {"moe_dispatch": "einsum"}),
+    ("moe_gather", "mixtral-8x7b", {"moe_dispatch": "gather"}),
+    ("moe_gather_dense_residual", "arctic-480b", {}),
+    ("encdec", "whisper-medium", {}),
+    ("kv_quant", "smollm-135m", {"kv_quant": True}),
+)
+LM_REDUCED_GEN = (2, 12, 8)                         # (B, prompt, new); windows are 8
+LM_REDUCED_ATOL = 1e-4
+
+
+def _f32(cfg):
+    return dataclasses.replace(cfg, compute_dtype="float32")
+
+
+def _copy_model(cfg, model, device):
+    """The same weights in a new module on ``device``."""
+    out = model_module(cfg, device=device)
+    out.load_state_dict(model.state_dict())
+    return out
+
+
+class _EngineRecorder:
+    """Wraps an engine's prefill and decode step: CUDA-event ms of each call
+    (on the card) and, with ``keep``, the logits each call returned."""
+
+    def __init__(self, eng: Engine, keep: bool):
+        self.timed = eng.device.type == "cuda"
+        self.calls: list[tuple[str, object, object]] = []
+        self.logits: list[torch.Tensor] = []
+        for attr, kind in (("_prefill", "prefill"), ("_step", "step")):
+            setattr(eng, attr, self._wrap(getattr(eng, attr), kind, keep))
+
+    def _wrap(self, fn, kind, keep):
+        def call(*args):
+            if self.timed:
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            out = fn(*args)
+            if self.timed:
+                ev[1].record()
+                self.calls.append((kind, *ev))
+            if keep:
+                self.logits.append(out[0])
+            return out
+        return call
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        got = {"prefill": [], "step": []}
+        for kind, start, end in self.calls:
+            got[kind].append(start.elapsed_time(end))
+        return got
+
+
+def _generate(cfg, model, b: int, t: int, new: int, *, seed: int, keep: bool,
+              device=None, enc=False):
+    """One Engine.generate of seeded prompts on ``device`` (default the
+    card); returns (prompts, out, recorder, host seconds, enc_embeds)."""
+    device = device or DEV
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    enc_embeds = (rng.normal(size=(b, t, cfg.d_model)).astype(np.float32) if enc else None)
+    eng = Engine(cfg, model, ServeConfig(max_new_tokens=new, s_cache=t + new), device=device)
+    rec = _EngineRecorder(eng, keep)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, enc_embeds=enc_embeds)   # ends in a copy to the host
+    return prompts, out, rec, time.perf_counter() - t0, enc_embeds
+
+
+def _greedy_vs_forward(cfg, model, b: int, t: int, new: int, seed: int) -> dict:
+    """Check 2: every step's logits of a greedy Engine.generate against one
+    full forward over the generated sequence; each chosen token is the
+    forward's argmax or within the tolerance of its max."""
+    prompts, out, rec, _, _ = _generate(cfg, model, b, t, new, seed=seed, keep=True)
+    api = build_model(cfg, device=DEV)
+    with torch.no_grad():
+        full, _ = api.forward(model, {"tokens": out})
+    v = cfg.vocab_size   # the padded ids' logits are -1e9 on both sides
+    want = full[:, t - 1: t + new, :v].float()                # (B, 1 + new, V)
+    got = torch.stack(rec.logits, dim=1)[..., :v].float()   # prefill, then the steps
+    tol = LM_F32_ATOL + LM_F32_RTOL * float(want.abs().max())
+    err = float((got - want).abs().max())
+    chosen = torch.from_numpy(out[:, t:]).long().to(DEV)
+    fw = want[:, :new]
+    gap = float((fw.amax(-1) - fw.gather(-1, chosen[..., None])[..., 0]).max())
+    argmax_equal = int((fw.argmax(-1) == chosen).sum())
+    require(err <= tol, f"{cfg.name}: decode logits differ from the forward by {err} > {tol}")
+    require(gap <= tol, f"{cfg.name}: a greedy token is {gap} below the forward's max (> {tol})")
+    return {"shape": [b, t, new], "max_abs_err": err, "tol": tol, "token_gap": gap,
+            "argmax_equal": argmax_equal, "tokens": b * new}
+
+
+def _decode_launches(api, model, b: int, t: int) -> dict:
+    """Kernels one decode step launches (torch.profiler's CUDA events) and
+    the aten ops it dispatches (``op_lint.record_call``), at batch ``b``
+    after a ``t``-token prefill."""
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, api.cfg.vocab_size, (b, t)).astype(np.int32)
+    _, caches = api.prefill(model, {"tokens": toks}, s_cache=t + 4)
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=DEV)
+    pos = torch.full((b,), t, dtype=torch.int32, device=DEV)
+    api.decode_step(model, caches, tok, pos)                  # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        api.decode_step(model, caches, tok, pos + 1)
+        torch.cuda.synchronize()
+    device_events = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    # One stream: the kernels' summed durations are the card's busy time.
+    busy_ms = sum(e.time_range.elapsed_us() for e in device_events) / 1e3
+    span_ms = (max(e.time_range.end for e in device_events)
+               - min(e.time_range.start for e in device_events)) / 1e3 if device_events else 0.0
+    ops = op_lint.record_call(api.decode_step, model, caches, tok, pos + 2).ops
+    return {"launches_per_step": len(device_events) if device_events else None,
+            "kernel_names": len({e.name for e in device_events}),
+            "profiled_step_busy_ms": busy_ms, "profiled_step_span_ms": span_ms,
+            "aten_ops_per_step": len(ops),
+            "aten_ops_on_card": sum("cuda" in op.in_devices + op.devices for op in ops)}
+
+
+def _lm_full_width() -> dict:
+    """smollm-135m at full width: prefill, generation, checks 1-3."""
+    cfg = get_config(LM_ARCH)
+    api = build_model(cfg, device=DEV)
+    model = api.init(torch.Generator(DEV).manual_seed(0))
+    out = {"arch": cfg.name, "params": param_count(model), "describe": describe(cfg),
+           "compute_dtype": cfg.compute_dtype}
+    rng = np.random.default_rng(1)
+
+    # Prefill 8 x 4096 (bfloat16 compute): CUDA events, tokens/s, peak.
+    b, t = LM_PREFILL
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)).to(DEV)
+    api.prefill(model, {"tokens": toks}, s_cache=t)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = cuda_ms(lambda: api.prefill(model, {"tokens": toks}, s_cache=t), reps=2, warmup=0)
+    out["prefill"] = {"shape": [b, t], "ms": ms, "tokens_per_s": b * t / ms * 1e3,
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "peak_above_weights_bytes": torch.cuda.max_memory_allocated() - base}
+    del toks
+    emit({"phase": "lm", "what": "prefill", **out["prefill"]})
+
+    # Engine.generate at B = 8 and 64: prefill ms, ms per decode step.
+    out["generate"] = []
+    for gb, gt, new in LM_GENERATE:
+        _generate(cfg, model, gb, gt, 4, seed=2, keep=False)            # warm-up
+        _, gen, rec, host_s, _ = _generate(cfg, model, gb, gt, new, seed=3, keep=False)
+        got = rec.ms()
+        steps = got["step"]
+        require(gen.shape == (gb, gt + new), f"generate shape {gen.shape}")
+        require(int(gen.max()) < cfg.vocab_size and int(gen.min()) >= 0, "generated ids")
+        row = {"shape": [gb, gt, new], "s_cache": gt + new, "prefill_ms": got["prefill"][0],
+               "decode_steps": len(steps), "step_ms_median": float(np.median(steps)),
+               "step_ms_min": min(steps), "step_ms_max": max(steps),
+               "decode_tokens_per_s": gb * len(steps) / sum(steps) * 1e3,
+               "generate_host_s": host_s,
+               **_decode_launches(api, model, gb, gt)}
+        out["generate"].append(row)
+        emit({"phase": "lm", "what": "generate", **row})
+
+    # Check 1: float32 on the card against float32 on the CPU.
+    cfg32 = _f32(cfg)
+    api32, cpu32 = build_model(cfg32, device=DEV), build_model(cfg32, device="cpu")
+    cpu_model = _copy_model(cfg32, model, "cpu")
+    toks = rng.integers(0, cfg.vocab_size, (1, LM_CHECK_T)).astype(np.int32)
+    t0 = time.perf_counter()
+    want, want_c = cpu32.prefill(cpu_model, {"tokens": toks}, s_cache=LM_CHECK_T + 3)
+    cpu_s = time.perf_counter() - t0
+    got, got_c = api32.prefill(model, {"tokens": toks}, s_cache=LM_CHECK_T + 3)
+    v = cfg.vocab_size
+    errs = [float((got.cpu() - want).abs().max())]
+    tols = [LM_F32_ATOL + LM_F32_RTOL * float(want[:, :v].abs().max())]
+    for s in range(3):   # teacher-forced: the same next tokens on both sides
+        nxt = rng.integers(0, cfg.vocab_size, (1, 1)).astype(np.int32)
+        pos = np.full((1,), LM_CHECK_T + s, np.int32)
+        want, want_c = cpu32.decode_step(cpu_model, want_c, nxt, pos)
+        got, got_c = api32.decode_step(model, got_c, nxt, pos)
+        errs.append(float((got.cpu() - want).abs().max()))
+        tols.append(LM_F32_ATOL + LM_F32_RTOL * float(want[:, :v].abs().max()))
+    for e, tol, what in zip(errs, tols, ("prefill", "decode 1", "decode 2", "decode 3")):
+        require(e <= tol, f"{cfg.name} float32 card vs CPU, {what}: {e} > {tol}")
+    out["check_f32_card_vs_cpu"] = {"t": LM_CHECK_T, "max_abs_err": errs, "tol": tols,
+                                    "cpu_prefill_s": cpu_s}
+    del cpu_model, want_c, got_c
+
+    # Check 2: greedy generation against one forward, float32 on the card.
+    out["check_greedy_vs_forward"] = _greedy_vs_forward(cfg32, model, *LM_GREEDY, seed=4)
+
+    # Check 3: bfloat16 compute against float32, both on the card.
+    lb, _ = api.prefill(model, {"tokens": toks}, s_cache=LM_CHECK_T)
+    l32, _ = api32.prefill(model, {"tokens": toks}, s_cache=LM_CHECK_T)
+    rel = float((lb.float() - l32).abs().max() / l32[:, :v].abs().max())
+    require(rel < LM_BF16_REL, f"{cfg.name} bfloat16 vs float32 prefill: {rel} >= {LM_BF16_REL}")
+    out["check_bf16_vs_f32"] = {"t": LM_CHECK_T, "max_rel_err": rel, "tol": LM_BF16_REL}
+    emit({"phase": "lm", "what": "checks", "arch": cfg.name,
+          **{k: out[k] for k in ("check_f32_card_vs_cpu", "check_greedy_vs_forward",
+                                 "check_bf16_vs_f32")}})
+    return out
+
+
+def _lm_ssm() -> dict:
+    """mamba2-130m at full width: prefill and decode times (bfloat16), then
+    check 2 in float32."""
+    cfg = get_config(LM_SSM_ARCH)
+    api = build_model(cfg, device=DEV)
+    model = api.init(torch.Generator(DEV).manual_seed(0))
+    b, t, new = LM_SSM
+    _generate(cfg, model, b, t, 2, seed=6, keep=False)                     # warm-up
+    _, gen, rec, host_s, _ = _generate(cfg, model, b, t, new, seed=7, keep=False)
+    got = rec.ms()
+    out = {"arch": cfg.name, "params": param_count(model), "shape": [b, t, new],
+           "prefill_ms": got["prefill"][0], "prefill_tokens_per_s": b * t / got["prefill"][0] * 1e3,
+           "step_ms_median": float(np.median(got["step"])),
+           "decode_tokens_per_s": b * len(got["step"]) / sum(got["step"]) * 1e3,
+           "generate_host_s": host_s,
+           "check_greedy_vs_forward": _greedy_vs_forward(_f32(cfg), model, b, t, new, seed=8)}
+    emit({"phase": "lm", "what": "ssm", **out})
+    return out
+
+
+def _hold_generation(name, t, got_out, got_logits, want_out, want_logits) -> dict:
+    """The card's generation against the CPU's: logits within
+    LM_REDUCED_ATOL up to the first step whose tokens part (if any), where
+    the CPU's top-2 margin must be within the tolerance too."""
+    got_tok, want_tok = got_out[:, t:], want_out[:, t:]
+    parted = np.nonzero((got_tok != want_tok).any(axis=0))[0]
+    last = int(parted[0]) if parted.size else got_tok.shape[1]
+    err = max(float((g.cpu().float() - w.float()).abs().max())
+              for g, w in zip(got_logits[: last + 1], want_logits[: last + 1]))
+    require(err <= LM_REDUCED_ATOL, f"{name}: card vs CPU logits differ by {err}")
+    margin = None
+    if parted.size:
+        top2 = want_logits[last].float().topk(2, dim=-1).values
+        margin = float((top2[:, 0] - top2[:, 1]).min())
+        require(margin <= LM_REDUCED_ATOL, f"{name}: tokens part at step {last} "
+                f"with a CPU top-2 margin of {margin}")
+    return {"max_abs_err": err, "tokens_equal": not parted.size, "parted_at": None
+            if not parted.size else last, "margin_at_part": margin}
+
+
+def _lm_reduced() -> dict:
+    """The other families, reduced: one Engine.generate each, card vs CPU."""
+    out = {}
+    b, t, new = LM_REDUCED_GEN
+    for name, arch, over in LM_REDUCED:
+        cfg = get_config(arch).reduced(**over)
+        cpu_model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        dev_model = _copy_model(cfg, cpu_model, DEV)
+        enc = cfg.is_encoder_decoder
+        _, want, want_rec, _, _ = _generate(cfg, cpu_model, b, t, new, seed=9, keep=True,
+                                            device=torch.device("cpu"), enc=enc)
+        _, got, got_rec, _, _ = _generate(cfg, dev_model, b, t, new, seed=9, keep=True,
+                                          enc=enc)
+        require(got.shape == (b, t + new), f"{name}: shape {got.shape}")
+        out[name] = {"arch": cfg.name, "dispatch": cfg.moe_dispatch if cfg.num_experts else None,
+                     "kv_quant": cfg.kv_quant,
+                     **_hold_generation(name, t, got, got_rec.logits, want, want_rec.logits)}
+        if cfg.kv_quant:
+            _, caches = build_model(cfg, device=DEV).prefill(dev_model, {"tokens": got[:, :t]})
+            require(caches[0]["k"].dtype == torch.int8, f"{name}: cache not int8")
+    emit({"phase": "lm", "what": "reduced", "cases": out})
+    return out
+
+
+def phase_lm() -> dict:
+    """The LM model core and its serving engine on the card (see the module
+    docstring, phase 15)."""
+    t0 = time.perf_counter()
+    settings = {
+        "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "allow_bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+        "float32_matmul_precision": torch.get_float32_matmul_precision(),
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+    }
+    # The float32 checks compare float32 arithmetic: TF32 must be off (the
+    # default; library code flips no global flag).
+    require(not settings["allow_tf32"] and settings["float32_matmul_precision"] == "highest",
+            f"float32 matmuls would run in TF32: {settings}")
+    emit({"phase": "lm", "what": "settings", **settings})
+    out = {"settings": settings, "smollm": _lm_full_width(), "mamba2": _lm_ssm(),
+           "reduced": _lm_reduced()}
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "lm", "seconds": out["seconds"]})
+    return out
+
+
 def _drop_tensors(*results: dict) -> None:
     """Free the tensors the phases' results hold; keep their numbers."""
     def holds_tensor(v):
@@ -2335,6 +2694,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    if sys.argv[1:] == ["lm"]:   # the LM phase alone
+        timed("device", phase_device)
+        timed("lm", phase_lm)
+        emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
+        return 0
     # Every plan before the autotune phase is untuned: a store of this run's
     # own, empty until that phase.
     os.environ["REPRO_TORCH_AUTOTUNE_PATH"] = str(AUTOTUNE_PATH)
@@ -2370,6 +2734,7 @@ def main() -> int:
     del stack, big, vol
     torch.cuda.empty_cache()
     sharded = timed("distributed", phase_distributed, shapes)["sharded_launches_per_rank"]
+    timed("lm", phase_lm)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
     runs = {name: main_run[f"{path}_launches"][name] for path, name in (
         ("features", "glcm_fused"), ("texture", "glcm_window"))}

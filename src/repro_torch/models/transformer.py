@@ -1,0 +1,446 @@
+"""Decoder-only LM assembly for dense / MoE / SSM / hybrid families.
+
+The port's counterpart of ``repro.models.transformer``. Layers are organized
+into **groups** of structurally-identical layers, as in the reference; where
+the reference stacks a group's params on a leading axis and runs them with
+``lax.scan``, the port keeps one module per layer in an ``nn.ModuleList``
+(``group_{i}``) and loops over it. Heterogeneous stacks (hymba:
+full-attention layers at {0, mid, last} between SWA runs) become multiple
+groups run in sequence. ``jax.checkpoint`` (``cfg.remat``) and
+``cfg.scan_unroll`` are training / compile-time concerns of the reference
+and do nothing here (training is ROADMAP item 18b).
+
+Cache layout per group (decode), stacked over the group's layers as in the
+reference:
+  attention: k/v (C, B, S_cache, KV, Dh), pos (C, B, S_cache) int32 with -1
+             for unwritten slots; ring caches (SWA) use S_cache = window and
+             slot = position mod window. With ``cfg.kv_quant``: int8 k/v and
+             float32 k_scale/v_scale (C, B, S_cache, KV).
+  ssm:       conv (C, B, K-1, CH), ssd (C, B, H, P, N).
+(C = layers in group.) ``lm_decode_step`` writes the new token's entries
+into these tensors IN PLACE and returns the same list (the reference returns
+new arrays; under ``jit`` XLA updates its buffers in place too).
+
+Positions are int32, as in the reference; index tensors are int64 where
+torch's indexing asks for it, with equal values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.attention import (
+    Attention,
+    output_proj,
+    project_kv,
+    project_q,
+    sdpa_chunked,
+    sdpa_direct,
+    self_attention,
+)
+from repro_torch.models.common import dtype_of, embed_init_, init_module
+from repro_torch.models.layers import (
+    MLP,
+    Embeddings,
+    Norm,
+    apply_mlp,
+    apply_norm,
+    embed_tokens,
+    sinusoidal_positions,
+    unembed,
+)
+from repro_torch.models.moe import MoE, apply_moe
+from repro_torch.sharding.logical import constrain
+
+def shard_friendly_xent(lg: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy. The reference extracts the gold logit with an
+    iota-compare-select sum (so it partitions over a vocab-sharded tensor);
+    a gather selects the same single value per row."""
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, targets[..., None].long())[..., 0]
+    return (logz - gold).mean()
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerGroup:
+    kind: str                  # "dense" | "moe" | "ssm" | "hybrid"
+    count: int
+    window: int | None         # None = full attention
+    first_layer: int           # global index of first layer
+
+
+def build_groups(cfg) -> tuple[LayerGroup, ...]:
+    fam = cfg.family
+    kind = {"dense": "dense", "vlm": "dense", "audio": "dense",
+            "moe": "moe", "ssm": "ssm", "hybrid": "hybrid"}[fam]
+    L = cfg.num_layers
+    if not (cfg.global_first_last and cfg.sliding_window):
+        return (LayerGroup(kind, L, cfg.sliding_window, 0),)
+    mid, last = L // 2, L - 1
+    groups: list[LayerGroup] = [LayerGroup(kind, 1, None, 0)]
+    if mid - 1 > 0:
+        groups.append(LayerGroup(kind, mid - 1, cfg.sliding_window, 1))
+    groups.append(LayerGroup(kind, 1, None, mid))
+    if last - mid - 1 > 0:
+        groups.append(LayerGroup(kind, last - mid - 1, cfg.sliding_window, mid + 1))
+    groups.append(LayerGroup(kind, 1, None, last))
+    return tuple(groups)
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+
+class Layer(nn.Module):
+    def __init__(self, cfg, kind: str, *, device=None):
+        super().__init__()
+        self.ln1 = Norm(cfg, device=device)
+        if kind in ("dense", "moe"):
+            self.attn = Attention(cfg, device=device)
+            self.ln2 = Norm(cfg, device=device)
+            if kind == "moe":
+                self.moe = MoE(cfg, device=device)
+            else:
+                self.mlp = MLP(cfg, device=device)
+        elif kind == "ssm":
+            self.mamba = ssm_mod.Mamba(cfg, device=device)
+        elif kind == "hybrid":
+            self.attn = Attention(cfg, device=device)
+            self.mamba = ssm_mod.Mamba(cfg, device=device)
+            # Per-branch output RMSNorm scales + learned combine (hymba §3).
+            self.bnorm_a = nn.Parameter(torch.ones(cfg.d_model, dtype=torch.float32,
+                                                   device=device))
+            self.bnorm_m = nn.Parameter(torch.ones(cfg.d_model, dtype=torch.float32,
+                                                   device=device))
+            self.ln2 = Norm(cfg, device=device)
+            self.mlp = MLP(cfg, device=device)
+        else:
+            raise ValueError(kind)
+
+
+class TransformerLM(nn.Module):
+    """embeddings, final_norm, meta (hymba), group_{i} = ModuleList of Layer."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = Embeddings(cfg, device=device)
+        self.final_norm = Norm(cfg, device=device)
+        if cfg.meta_tokens:
+            self.meta = nn.Parameter(torch.empty(cfg.meta_tokens, cfg.d_model,
+                                                 dtype=dtype_of(cfg.param_dtype), device=device))
+        self.groups = build_groups(cfg)
+        for i, g in enumerate(self.groups):
+            setattr(self, f"group_{i}",
+                    nn.ModuleList(Layer(cfg, g.kind, device=device) for _ in range(g.count)))
+
+    def _init(self, gen):
+        if self.cfg.meta_tokens:
+            embed_init_(self.meta, gen)
+
+    def group(self, i: int) -> nn.ModuleList:
+        return getattr(self, f"group_{i}")
+
+
+def init_lm_params(cfg, gen: torch.Generator, device=None) -> TransformerLM:
+    return init_module(TransformerLM(cfg, device=device), gen)
+
+
+# ---------------------------------------------------------------------------
+# Layer bodies
+# ---------------------------------------------------------------------------
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + 1e-5)
+    return (y * scale).to(x.dtype)
+
+
+def apply_layer(cfg, kind: str, p: Layer, x, positions, window, aux, *, chunk: int = 1024):
+    """Train/prefill layer body. Returns (x, aux)."""
+    h = apply_norm(cfg, p.ln1, x)
+    if kind in ("dense", "moe"):
+        x = x + self_attention(cfg, p.attn, h, positions, window=window, chunk=chunk)
+        h2 = apply_norm(cfg, p.ln2, x)
+        if kind == "moe":
+            y, a = apply_moe(cfg, p.moe, h2)
+            aux = aux + a
+        else:
+            y = apply_mlp(cfg, p.mlp, h2)
+        return x + y, aux
+    if kind == "ssm":
+        return x + ssm_mod.apply_mamba(cfg, p.mamba, h), aux
+    if kind == "hybrid":
+        att = self_attention(cfg, p.attn, h, positions, window=window, chunk=chunk)
+        mam = ssm_mod.apply_mamba(cfg, p.mamba, h)
+        x = x + 0.5 * (_rms(att, p.bnorm_a) + _rms(mam, p.bnorm_m))
+        x = x + apply_mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
+        return x, aux
+    raise ValueError(kind)
+
+
+# --- cache-producing / cache-consuming variants -----------------------------
+
+
+def _quantize_kv(x):
+    """(..., Dh) → (int8 values, f32 per-(token,head) scales)."""
+    xf = x.float()
+    scale = torch.clamp(torch.amax(torch.abs(xf), dim=-1), min=1e-8) / 127.0
+    q = torch.round(xf / scale[..., None]).to(torch.int8)   # half to even, as jnp.round
+    return q, scale
+
+
+def _dequantize_kv(q, scale, dtype):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def _attn_prefill(cfg, p, h, positions, window, s_cache, *, chunk=1024):
+    """Self-attention that also emits the layer's KV cache."""
+    q = project_q(cfg, p, h, positions)
+    k, v = project_kv(cfg, p, h, positions)
+    y = sdpa_chunked(q, k, v, positions, positions, causal=True, window=window, chunk=chunk)
+    b, s, kvh, dh = k.shape
+    kc = torch.zeros((b, s_cache, kvh, dh), dtype=k.dtype, device=k.device)
+    vc = torch.zeros_like(kc)
+    pc = torch.full((b, s_cache), -1, dtype=torch.int32, device=k.device)
+    if s_cache >= s:   # full cache: place at the head
+        kc[:, :s] = k
+        vc[:, :s] = v
+        pc[:, :s] = positions.to(torch.int32)
+    else:              # ring cache: keep last s_cache tokens at slot pos % W
+        keep_p = positions[:, s - s_cache:].to(torch.int32)
+        slots = (keep_p % s_cache).long()                       # (B, W)
+        bidx = torch.arange(b, device=k.device)[:, None]
+        kc[bidx, slots] = k[:, s - s_cache:]
+        vc[bidx, slots] = v[:, s - s_cache:]
+        pc[bidx, slots] = keep_p
+    if cfg.kv_quant:
+        kq, ks = _quantize_kv(kc)
+        vq, vs = _quantize_kv(vc)
+        return output_proj(p, y), {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs, "pos": pc}
+    return output_proj(p, y), {"k": kc, "v": vc, "pos": pc}
+
+
+def _attn_decode(cfg, p, h1, pos, cache, window):
+    """One-step attention against (and updating, in place) one layer's cache.
+    h1 (B,1,D); pos (B,) current position. With cfg.kv_quant the cache holds
+    int8 values + f32 scales, dequantized for the attention einsums."""
+    q = project_q(cfg, p, h1, pos[:, None])
+    k1, v1 = project_kv(cfg, p, h1, pos[:, None])
+    s_cache = cache["k"].shape[1]
+    slot = (pos % s_cache if window else torch.clamp(pos, max=s_cache - 1)).long()
+    bidx = torch.arange(h1.shape[0], device=h1.device)
+    cache["pos"][bidx, slot] = pos.to(torch.int32)
+    if cfg.kv_quant:
+        kq1, ks1 = _quantize_kv(k1[:, 0])
+        vq1, vs1 = _quantize_kv(v1[:, 0])
+        cache["k"][bidx, slot] = kq1
+        cache["k_scale"][bidx, slot] = ks1
+        cache["v"][bidx, slot] = vq1
+        cache["v_scale"][bidx, slot] = vs1
+        kc = _dequantize_kv(cache["k"], cache["k_scale"], h1.dtype)
+        vc = _dequantize_kv(cache["v"], cache["v_scale"], h1.dtype)
+    else:
+        cache["k"][bidx, slot] = k1[:, 0]
+        cache["v"][bidx, slot] = v1[:, 0]
+        kc, vc = cache["k"], cache["v"]
+    y = sdpa_direct(q, kc, vc, pos[:, None], cache["pos"], causal=True, window=window)
+    return output_proj(p, y)
+
+
+def _conv_tail(cfg, pm, h):
+    """Last K-1 conv inputs (for decode continuation after prefill)."""
+    proj = torch.einsum("btd,de->bte", h, pm.in_proj.to(h.dtype))
+    _, xc, bm, cm, _ = ssm_mod._split_in(cfg, proj)
+    xbc = torch.cat([xc, bm, cm], dim=-1)
+    return xbc[:, -(cfg.ssm_conv - 1):, :]
+
+
+def apply_layer_prefill(cfg, kind, p, x, positions, window, s_cache, aux, *, chunk=1024):
+    h = apply_norm(cfg, p.ln1, x)
+    cache: dict[str, Any] = {}
+    if kind in ("dense", "moe"):
+        att, cache_a = _attn_prefill(cfg, p.attn, h, positions, window, s_cache, chunk=chunk)
+        cache.update(cache_a)
+        x = x + att
+        h2 = apply_norm(cfg, p.ln2, x)
+        if kind == "moe":
+            y, a = apply_moe(cfg, p.moe, h2)
+            aux = aux + a
+        else:
+            y = apply_mlp(cfg, p.mlp, h2)
+        return x + y, cache, aux
+    if kind == "ssm":
+        y, state = ssm_mod.apply_mamba(cfg, p.mamba, h, return_state=True)
+        return x + y, {"conv": _conv_tail(cfg, p.mamba, h), "ssd": state}, aux
+    if kind == "hybrid":
+        att, cache_a = _attn_prefill(cfg, p.attn, h, positions, window, s_cache, chunk=chunk)
+        mam, state = ssm_mod.apply_mamba(cfg, p.mamba, h, return_state=True)
+        cache.update(cache_a)
+        cache["conv"] = _conv_tail(cfg, p.mamba, h)
+        cache["ssd"] = state
+        x = x + 0.5 * (_rms(att, p.bnorm_a) + _rms(mam, p.bnorm_m))
+        x = x + apply_mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
+        return x, cache, aux
+    raise ValueError(kind)
+
+
+def apply_layer_decode(cfg, kind, p, x1, pos, cache, window):
+    """One decode step of one layer; ``cache`` holds this layer's views of
+    the group's stacked tensors and is updated in place."""
+    h = apply_norm(cfg, p.ln1, x1)
+    if kind in ("dense", "moe"):
+        x1 = x1 + _attn_decode(cfg, p.attn, h, pos, cache, window)
+        h2 = apply_norm(cfg, p.ln2, x1)
+        if kind == "moe":
+            y, _ = apply_moe(cfg, p.moe, h2)
+        else:
+            y = apply_mlp(cfg, p.mlp, h2)
+        return x1 + y
+    if kind == "ssm":
+        y, st = ssm_mod.apply_mamba_decode(cfg, p.mamba, h, cache)
+        cache["conv"].copy_(st["conv"])
+        cache["ssd"].copy_(st["ssd"])
+        return x1 + y
+    if kind == "hybrid":
+        att = _attn_decode(cfg, p.attn, h, pos, cache, window)
+        mam, st = ssm_mod.apply_mamba_decode(cfg, p.mamba, h, cache)
+        cache["conv"].copy_(st["conv"])
+        cache["ssd"].copy_(st["ssd"])
+        x1 = x1 + 0.5 * (_rms(att, p.bnorm_a) + _rms(mam, p.bnorm_m))
+        return x1 + apply_mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, x1))
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Whole-model forward
+# ---------------------------------------------------------------------------
+
+
+def _window_arg(g: LayerGroup):
+    return g.window if g.window else None
+
+
+def _embed_inputs(cfg, params: TransformerLM, batch, compute_dtype):
+    """tokens and/or embeds → (x, positions, n_prefix). Meta tokens (hymba)
+    are prepended; positions are global token indices."""
+    if "embeds" in batch:
+        x = batch["embeds"].to(compute_dtype)
+    else:
+        x = embed_tokens(cfg, params.embeddings, batch["tokens"], compute_dtype)
+    b, t = x.shape[0], x.shape[1]
+    n_prefix = 0
+    if cfg.meta_tokens:
+        meta = params.meta.to(compute_dtype)
+        x = torch.cat([meta.expand((b,) + meta.shape), x], dim=1)
+        n_prefix = cfg.meta_tokens
+        t = t + n_prefix
+    positions = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
+    if not cfg.use_rope:
+        x = x + sinusoidal_positions(positions, cfg.d_model).to(compute_dtype)
+    return constrain(x, "batch", "seq", None), positions, n_prefix
+
+
+def lm_forward(cfg, params: TransformerLM, batch: dict, *, chunk: int = 1024):
+    """Full causal forward → (logits (B,T,V), aux_loss). T excludes meta."""
+    cdt = dtype_of(cfg.compute_dtype)
+    x, positions, n_prefix = _embed_inputs(cfg, params, batch, cdt)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, g in enumerate(params.groups):
+        for layer in params.group(i):
+            x, aux = apply_layer(cfg, g.kind, layer, x, positions, _window_arg(g), aux,
+                                 chunk=chunk)
+            x = constrain(x, "batch", "seq", None)
+    x = apply_norm(cfg, params.final_norm, x)
+    if n_prefix:
+        x = x[:, n_prefix:, :]
+    return unembed(cfg, params.embeddings, x), aux
+
+
+def lm_loss(cfg, params: TransformerLM, batch: dict, *, chunk: int = 1024):
+    """Next-token cross-entropy (shift-by-one inside). batch: tokens (B,T)
+    [+ embeds (B,T,D) for stub-frontend archs, in which case tokens are the
+    targets aligned with embeds]."""
+    logits, aux = lm_forward(cfg, params, batch, chunk=chunk)
+    targets = batch["tokens"][:, 1:]
+    lg = constrain(logits[:, :-1, :].float(), "batch", None, "vocab")
+    nll = shard_friendly_xent(lg, targets)
+    return nll + aux, {"nll": nll, "aux": aux}
+
+
+def lm_prefill(cfg, params: TransformerLM, batch: dict, *, s_cache: int | None = None,
+               chunk: int = 1024):
+    """Forward + cache build. Returns (last-token logits (B,V), caches)."""
+    cdt = dtype_of(cfg.compute_dtype)
+    x, positions, n_prefix = _embed_inputs(cfg, params, batch, cdt)
+    total = x.shape[1]
+    caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # ``s_cache`` counts RAW token positions; the meta-token prefix (hymba)
+    # occupies additional slots in full (non-ring) caches.
+    full_sc = (s_cache or (total - n_prefix)) + n_prefix
+    for i, g in enumerate(params.groups):
+        sc = max(g.window if g.window else full_sc, 1)
+        per_layer = []
+        for layer in params.group(i):
+            x, cache, aux = apply_layer_prefill(cfg, g.kind, layer, x, positions,
+                                                _window_arg(g), sc, aux, chunk=chunk)
+            x = constrain(x, "batch", "seq", None)
+            per_layer.append(cache)
+        caches.append({k: torch.stack([c[k] for c in per_layer]) for k in per_layer[0]})
+    x = apply_norm(cfg, params.final_norm, x)
+    logits = unembed(cfg, params.embeddings, x[:, -1:, :])[:, 0, :]
+    return logits, caches
+
+
+def lm_decode_step(cfg, params: TransformerLM, caches: list, token: torch.Tensor,
+                   pos: torch.Tensor):
+    """One decode step. token (B,1) int; pos (B,) = index of `token` in the
+    raw sequence (meta-token offset applied internally). Returns
+    (logits (B,V), caches), the caches updated in place."""
+    cdt = dtype_of(cfg.compute_dtype)
+    x = embed_tokens(cfg, params.embeddings, token, cdt)
+    gpos = pos.to(torch.int32) + cfg.meta_tokens
+    if not cfg.use_rope:
+        x = x + sinusoidal_positions(gpos[:, None], cfg.d_model).to(cdt)
+    for i, g in enumerate(params.groups):
+        for j, layer in enumerate(params.group(i)):
+            layer_cache = {k: v[j] for k, v in caches[i].items()}
+            x = apply_layer_decode(cfg, g.kind, layer, x, gpos, layer_cache, _window_arg(g))
+    x = apply_norm(cfg, params.final_norm, x)
+    logits = unembed(cfg, params.embeddings, x)[:, 0, :]
+    return logits, caches
+
+
+def init_decode_caches(cfg, batch: int, s_cache: int, dtype, device=None) -> list:
+    """Empty caches for all groups."""
+    caches = []
+    kvh, dh = cfg.num_kv_heads, cfg.head_dim_
+    for g in build_groups(cfg):
+        c: dict[str, Any] = {}
+        if g.kind in ("dense", "moe", "hybrid"):
+            sc = g.window if g.window else s_cache
+            shape = (g.count, batch, sc, kvh, dh)
+            if cfg.kv_quant:
+                c["k"] = torch.zeros(shape, dtype=torch.int8, device=device)
+                c["v"] = torch.zeros(shape, dtype=torch.int8, device=device)
+                c["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                c["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+            else:
+                c["k"] = torch.zeros(shape, dtype=dtype, device=device)
+                c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+            c["pos"] = torch.full(shape[:3], -1, dtype=torch.int32, device=device)
+        if g.kind in ("ssm", "hybrid"):
+            st = ssm_mod.init_mamba_cache(cfg, batch, dtype, device)
+            c["conv"] = torch.zeros((g.count,) + st["conv"].shape, dtype=dtype, device=device)
+            c["ssd"] = torch.zeros((g.count,) + st["ssd"].shape, dtype=torch.float32,
+                                   device=device)
+        caches.append(c)
+    return caches

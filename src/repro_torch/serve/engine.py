@@ -1,8 +1,14 @@
-"""Serving engine: continuous-batching GLCM features on the card.
+"""Serving engines on the card: LM generation and continuous-batching GLCM
+features. Counterpart of ``repro.serve.engine``.
 
-Counterpart of ``repro.serve.engine``'s ``GLCMEngine``. The reference file
-also holds the LM ``Engine``, ``ServeConfig`` and ``perplexity``; they come
-with the port's slice of the seed LM substrate and are not here.
+``Engine`` — a small but real LM engine: a batch of prompts is prefilled
+once, then decoded token by token (greedy ``argmax`` or temperature
+sampling) against the model's caches (full, ring or SSM state), with per-slot
+positions and an EOS early stop: the reference's loop, step for step.
+Temperature sampling draws Gumbel noise from a ``torch.Generator`` seeded
+from ``ServeConfig.seed`` — reproducible by seed, but not the bits of the
+reference's ``jax.random.categorical``. ``perplexity`` is exp(mean NLL) of a
+token batch.
 
 ``GLCMEngine`` runs the paper workload as a service. The paper's 50× comes
 from keeping the device saturated with batched work; the engine's job is to
@@ -86,11 +92,106 @@ from repro_torch.core.plan import (
 )
 from repro_torch.core.spec import GLCMSpec
 from repro_torch.core.stream_state import GLCMStreamState
+from repro_torch.models import build_model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.recorder import FlightRecorder
 
-__all__ = ["GLCMEngine", "GLCMServeConfig", "QueueFullError"]
+__all__ = ["Engine", "GLCMEngine", "GLCMServeConfig", "QueueFullError", "ServeConfig",
+           "perplexity"]
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_new_tokens: int = 32
+    temperature: float = 0.0       # 0 = greedy
+    eos_id: int | None = None
+    s_cache: int = 256
+    seed: int = 0
+
+
+def _model_device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+class Engine:
+    """LM generation with ``model`` (the module ``build_model(cfg).init``
+    returns, or one loaded with the reference's parameters) on ``device``
+    (``None`` = the card; raises without one). The model must already live
+    there: the engine copies no weights."""
+
+    def __init__(self, cfg, model: torch.nn.Module, scfg: ServeConfig = ServeConfig(), *,
+                 device=None):
+        self.cfg = cfg
+        self.api = build_model(cfg, device=device)
+        self.device = self.api.device
+        if _model_device(model) != self.device:
+            raise ValueError(f"model parameters live on {_model_device(model)}, "
+                             f"the engine runs on {self.device}")
+        self.model = model
+        self.scfg = scfg
+        self._prefill = lambda p, b: self.api.prefill(p, b, s_cache=scfg.s_cache)
+        self._step = self.api.decode_step
+
+    def generate(self, prompts: np.ndarray, *, enc_embeds: np.ndarray | None = None
+                 ) -> np.ndarray:
+        """prompts: (B, T) int ids in [0, vocab_size) → (B, T + max_new)
+        generated ids. An encoder-decoder config also takes the encoder's
+        frame embeddings ``enc_embeds`` (B, T_enc, d_model): the reference
+        engine feeds tokens only, so it cannot serve whisper."""
+        scfg, cfg = self.scfg, self.cfg
+        prompts = np.asarray(prompts)
+        b, t = prompts.shape
+        if t + scfg.max_new_tokens > scfg.s_cache:
+            raise ValueError(
+                f"prompt {t} + {scfg.max_new_tokens} new > cache {scfg.s_cache}")
+        # The reference's embedding lookup clamps an out-of-range id; the
+        # port's indexing does not, so the contract is checked here.
+        if prompts.size and (prompts.min() < 0 or prompts.max() >= cfg.vocab_size):
+            raise ValueError(f"prompt ids must lie in [0, {cfg.vocab_size})")
+        if cfg.is_encoder_decoder and enc_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass enc_embeds")
+        toks = torch.as_tensor(prompts.astype(np.int32), device=self.device)
+        batch = {"tokens": toks}
+        if enc_embeds is not None:
+            batch["enc_embeds"] = torch.as_tensor(np.asarray(enc_embeds), device=self.device)
+        logits, caches = self._prefill(self.model, batch)
+
+        gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
+        out = [toks]
+        done = torch.zeros((b,), dtype=torch.bool, device=self.device)
+        token = self._sample(logits, gen)
+        pos = torch.full((b,), t, dtype=torch.int32, device=self.device)
+        for i in range(scfg.max_new_tokens):
+            out.append(token)
+            if scfg.eos_id is not None:
+                done = done | (token[:, 0] == scfg.eos_id)
+                if bool(done.all()):
+                    out.append(torch.full((b, scfg.max_new_tokens - i - 1), scfg.eos_id,
+                                          dtype=torch.int32, device=self.device))
+                    break
+            logits, caches = self._step(self.model, caches, token, pos)
+            token = self._sample(logits, gen)
+            pos = pos + 1
+        return torch.cat(out, dim=1).cpu().numpy()
+
+    def _sample(self, logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+        if self.scfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        # Gumbel-max, the algorithm of jax.random.categorical, on the port's
+        # own random stream.
+        scaled = logits.float() / self.scfg.temperature
+        gumbel = -torch.log(torch.empty_like(scaled).exponential_(generator=gen))
+        return torch.argmax(scaled + gumbel, dim=-1)[:, None].to(torch.int32)
+
+
+def perplexity(cfg, model: torch.nn.Module, tokens: np.ndarray) -> float:
+    """Convenience eval: exp(mean NLL) over a token batch, on the model's
+    device."""
+    api = build_model(cfg, device=_model_device(model))
+    with torch.no_grad():
+        _, metrics = api.loss(model, {"tokens": np.asarray(tokens)})
+    return float(torch.exp(metrics["nll"]))
 
 
 class QueueFullError(RuntimeError):

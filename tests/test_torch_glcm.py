@@ -223,6 +223,8 @@ def test_plan_input_checks_and_inputs():
 def test_import_pulls_in_no_jax_and_no_reference():
     code = (
         "import sys; import repro_torch, repro_torch.core, repro_torch.kernels.ops; "
+        "import repro_torch.models, repro_torch.configs, repro_torch.models.convert; "
+        "import repro_torch.data.tokens, repro_torch.serve.engine, repro_torch.launch.serve; "
         "import chip_smoke; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'repro' or m.startswith('repro.')); "
