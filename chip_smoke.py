@@ -163,6 +163,22 @@ Phases, each printing one JSON line:
     ``Engine.generate`` each on the card against the same call on the CPU.
     ``python3 chip_smoke.py lm`` runs the device and ``lm`` phases alone.
 
+16. ``train`` (single-process LM training, ``repro_torch.train`` and
+    ``launch.steps.make_train_step``; plain PyTorch on the card, no kernel of
+    ``csrc``): smollm-135m at full width (float32 master parameters,
+    bfloat16 compute, ``remat`` on, AdamW) through the entry point itself,
+    ``train.loop.train`` with 8 steps of 8 x 2048 tokens and a checkpoint at
+    step 4, then ``train`` again to 10 steps on the same directory, which
+    resumes at step 5. Printed: the median step ms after the first step and
+    tokens/s, the peak allocation, the first and last loss, one step's
+    kernel launches and device-busy ms (``torch.profiler``), the phase's
+    seconds. Checks (``TRAIN_*`` tolerances): finite losses, the last below
+    the first; float32 on the card against float32 on the CPU at B = 1,
+    T = 256 (the loss, every gradient, the parameters after one AdamW step);
+    remat on against off on the card; the resumed run restores the saved
+    parameters bit for bit; TF32 off. ``python3 chip_smoke.py train`` runs
+    the device and ``train`` phases alone.
+
 The store of autotuner winners is ``build/autotune.json``
 (``REPRO_TORCH_AUTOTUNE_PATH``), deleted before any plan is compiled, so
 every phase before ``autotune`` runs the untuned "auto" choice.
@@ -238,7 +254,13 @@ from repro_torch.kernels.ops import default_slab_d, default_tile_h  # noqa: E402
 from repro_torch.launch.mesh import make_compat_mesh, make_host_mesh  # noqa: E402
 from repro_torch.models import build_model, describe  # noqa: E402
 from repro_torch.models.common import param_count  # noqa: E402
+from repro_torch.models.convert import reference_tree  # noqa: E402
 from repro_torch.models.model import model_module  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.data.tokens import SyntheticTokens  # noqa: E402
+from repro_torch.train import checkpoint as train_ckpt  # noqa: E402
+from repro_torch.train.loop import TrainLoopConfig, train  # noqa: E402
+from repro_torch.train.optimizer import adamw_init, adamw_update, make_optimizer  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     DIRECTIONS_3D,
     glcm_offsets,
@@ -306,6 +328,12 @@ def require(cond: bool, what: str) -> None:
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def exact_counts(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Both int32 and equal, with no cast: a float32 copy of either side
+    would round a cell past 2**24 and hide a difference there."""
+    return a.dtype == b.dtype == torch.int32 and torch.equal(a, b)
 
 
 def reset_launches() -> None:
@@ -714,7 +742,7 @@ def phase_checks(stack, big, main) -> dict:
     fused_err = max_abs_err(counts, plain)
     require(fused_err == 0, f"glcm_fused differs from plain by {fused_err}")
     plan_counts = compile_plan(fused_spec, tuple(stack.shape))(stack)
-    require(torch.equal(plan_counts, counts.to(torch.float32)), "plan counts != kernel counts")
+    require(exact_counts(plan_counts, counts), "plan counts != kernel counts")
     want = haralick_features(plain.cpu().to(torch.float32)).numpy()
     got = feats.cpu().numpy()
     b, h, w = stack.shape
@@ -742,12 +770,14 @@ def phase_checks(stack, big, main) -> dict:
     total = int(vcounts.to(torch.int64).sum().item())
     expect = (big.shape[0] - 1) * (big.shape[1] - 1)
     require(total == expect, f"vote total {total} != {expect}")
-    require(torch.equal(mat, vcounts[0].to(torch.float32)), "glcm() != kernel counts")
-    require(bool(torch.isfinite(mat).all()), "glcm() not finite")
+    require(exact_counts(mat, vcounts[0]), "glcm() != kernel counts")
+    # Cells past 2**24, where a float32 copy of the counts would round.
+    past_2_24 = int((vcounts >= 2**24).sum().item())
     out = {"fused_scheme": fused_scheme, "vote_scheme": vote_scheme,
            "fused_max_abs_err": fused_err, "vote_max_abs_err": vote_err,
            "features_max_abs_err_f1_f13": f_err, "features_max_abs_err_f14": f14_err,
-           "vote_total": total, "fused_votes_per_offset": votes_per_offset}
+           "vote_total": total, "vote_cells_past_2_24": past_2_24,
+           "fused_votes_per_offset": votes_per_offset}
     emit({"phase": "checks", **out})
     out.update(quant=quant, offsets=offsets, a=a, r=r)
     return out
@@ -821,6 +851,9 @@ def phase_timing(stack, big, chk) -> dict:
         u8.numel() + b * 2 * 4 + b * len(offsets) * LEVELS**2 * 4, fused_ops)
     t["fused_uint8_plain_ms"] = cuda_ms(lambda: glcm_fused_plain(u8, LEVELS, offsets, quant=q8),
                                         reps=3)
+    t["fused_uint8_max_abs_err"] = max_abs_err(
+        fused8(u8, q8), glcm_fused_plain(u8, LEVELS, offsets, quant=q8))
+    require(t["fused_uint8_max_abs_err"] == 0, "glcm_fused on the uint8 stack != plain")
     glcm_features(u8, LEVELS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -891,7 +924,7 @@ def phase_texture_checks(stack, main) -> dict:
     window_err = max_abs_err(counts, plain)
     require(window_err == 0, f"glcm_window differs from plain by {window_err}")
     require(tuple(counts.shape) == grid + (len(offsets), LEVELS, LEVELS), "window counts shape")
-    require(torch.equal(compile_plan(spec, tuple(img.shape))(img), counts.to(torch.float32)),
+    require(exact_counts(compile_plan(spec, tuple(img.shape))(img), counts),
             "texture plan counts != kernel counts")
     per_window = counts.to(torch.int64).sum(dim=(-2, -1))  # (gh, gw, n_off)
     expect = torch.tensor([(WINDOW - dy) * (WINDOW - abs(dx)) for dy, dx in offsets],
@@ -907,7 +940,7 @@ def phase_texture_checks(stack, main) -> dict:
     a = bin_values(assoc, LEVELS, lo, span).reshape(tiles.shape[0], -1)
     r = bin_values(ref, LEVELS, lo, span).reshape(tiles.shape[0], -1)
     tplain = glcm_vote_plain(a, r, LEVELS)
-    require(torch.equal(main["tiles"].reshape(tplain.shape), tplain.to(torch.float32)),
+    require(exact_counts(main["tiles"].reshape(tplain.shape), tplain),
             "tiles counts != glcm_vote_plain")
     require(bool((tplain.to(torch.int64).sum(dim=(1, 2)) == TILE * (TILE - 1)).all()),
             "tile vote totals")
@@ -938,7 +971,7 @@ def phase_volume_checks(vol, main) -> dict:
     plain = glcm_volume_plain(vol, LEVELS, offsets, quant=quant)
     volume_err = max_abs_err(counts, plain)
     require(volume_err == 0, f"glcm_volume differs from plain by {volume_err}")
-    require(torch.equal(compile_plan(spec, tuple(vol.shape))(vol), counts.to(torch.float32)),
+    require(exact_counts(compile_plan(spec, tuple(vol.shape))(vol), counts),
             "volume plan counts != kernel counts")
     b, d, h, w = vol.shape
     votes = counts.to(torch.int64).sum(dim=(-2, -1))  # (B, 13)
@@ -950,7 +983,7 @@ def phase_volume_checks(vol, main) -> dict:
     off7 = glcm_offsets_3d(1, VOLUME_DIRECTION)
     q0 = uniform_params(vol[0])
     one_plain = glcm_volume_plain(vol[:1], LEVELS, (off7,), quant=q0)[0, 0]
-    require(torch.equal(main["vmat"], one_plain.to(torch.float32)),
+    require(exact_counts(main["vmat"], one_plain),
             "volume glcm() != glcm_volume_plain")
     require(int(one_plain.to(torch.int64).sum()) == (d - off7[0]) * (h - abs(off7[1]))
             * (w - abs(off7[2])), "direction-7 vote total")
@@ -1660,7 +1693,7 @@ def phase_serve(stack, vol, video: np.ndarray) -> dict:
             require(np.array_equal(got, rolled[t].cpu().numpy()),
                     f"{mode}: push {t} != the stream plan's rolling window")
         for t, state in session.states.items():
-            require(torch.equal(state.counts.to(torch.float32), counts[t]),
+            require(exact_counts(state.counts, counts[t]),
                     f"{mode}: session counts after frame {t} != rolling counts")
         _check_launches(r, len(session.outputs), mode)
     del rolled, counts
@@ -1738,7 +1771,7 @@ def _lint_ms_sum() -> float:
 def _plain_fused_on_card(img, spec, quant=None):
     """A backend that claims the card's kernels but counts with the fused
     kernel's plain version on the CUDA tensor (a quiet fallback)."""
-    return glcm_fused_plain(img, spec.levels, spec.offsets(), quant=quant).to(torch.float32)
+    return glcm_fused_plain(img, spec.levels, spec.offsets(), quant=quant)
 
 
 def _item_on_card(img, spec, quant=None):
@@ -1748,7 +1781,7 @@ def _item_on_card(img, spec, quant=None):
     counts = glcm_fused(img, levels=spec.levels, offsets=offsets,
                         tile_h=default_tile_h(offsets), quant=quant)
     require(counts.sum().item() > 0, "the dirty backend counted nothing")
-    return counts.to(torch.float32)
+    return counts
 
 
 def _dirty_lint(name: str, compute, rule: str) -> dict:
@@ -2670,6 +2703,216 @@ def phase_lm() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# train: single-process LM training (ROADMAP Queue 1 item A)
+# ---------------------------------------------------------------------------
+
+# smollm-135m at full width as published (float32 parameters, bfloat16
+# compute, remat on, AdamW), through train.loop.train: 8 steps of 8 x 2048
+# tokens with a checkpoint at step 4, then on to 10 steps from that
+# checkpoint (resuming at step 5).
+TRAIN_ARCH = "smollm-135m"
+TRAIN_LOOP = dict(total_steps=8, seq_len=2048, global_batch=8, ckpt_every=4, log_every=1)
+TRAIN_RESUME_STEPS = 10
+TRAIN_DIR = ROOT / "build" / "train_ckpt"
+# Float32 card vs CPU at B = 1, T = 256, the same weights: the loss within
+# TRAIN_LOSS_RTOL; each parameter's gradient within TRAIN_GRAD_RTOL of that
+# parameter's max |g| plus TRAIN_GRAD_FLOOR of the model's (summation order
+# differs over 30 layers); after one AdamW step each parameter within
+# TRAIN_PARAM_ATOL wherever its gradient exceeds that gradient tolerance on
+# the CPU. Where it does not, the step's sign can differ between the two
+# (Adam's first update is about lr · sign(g)): those elements within 2 · lr
+# plus TRAIN_PARAM_ATOL, and counted.
+TRAIN_CHECK = (1, 256)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL, TRAIN_GRAD_FLOOR = 1e-4, 1e-5
+TRAIN_PARAM_ATOL = 1e-6
+# Remat on vs off on the card, bfloat16 compute at B = 2, T = 2048 (fits
+# without remat): each gradient within TRAIN_REMAT_RTOL of its max |g| (the
+# recomputation repeats the same kernels on the same inputs).
+TRAIN_REMAT = (2, 2048)
+TRAIN_REMAT_RTOL = 1e-6
+
+
+def _grads(api, model, batch) -> tuple[float, dict]:
+    model.zero_grad(set_to_none=True)
+    loss, _ = api.loss(model, batch)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def _grad_gaps(got: dict, want: dict) -> tuple[float, dict]:
+    """The largest ratio max |Δ| / (that parameter's tolerance) and, per
+    parameter, the gradient tolerance."""
+    top = max(float(w.abs().max()) for w in want.values())
+    tols, worst = {}, 0.0
+    for n, w in want.items():
+        tols[n] = TRAIN_GRAD_RTOL * float(w.abs().max()) + TRAIN_GRAD_FLOOR * top
+        worst = max(worst, float((got[n].cpu() - w).abs().max()) / tols[n])
+    return worst, tols
+
+
+def _train_f32_parity(cfg) -> dict:
+    """Float32 card vs CPU: the loss, every gradient, one AdamW step."""
+    cfg32 = _f32(cfg)
+    b, t = TRAIN_CHECK
+    cpu_api, dev_api = build_model(cfg32, device="cpu"), build_model(cfg32, device=DEV)
+    cpu_model = cpu_api.init(torch.Generator().manual_seed(2))
+    dev_model = _copy_model(cfg32, cpu_model, DEV)
+    batch = SyntheticTokens(cfg.vocab_size, seq_len=t, global_batch=b, seed=3).batch_at(0)
+    want_loss, want = _grads(cpu_api, cpu_model, batch)
+    got_loss, got = _grads(dev_api, dev_model, batch)
+    require(set(got) == set(want), "card and CPU differ in which parameters have gradients")
+    loss_err = abs(got_loss - want_loss)
+    require(math.isfinite(got_loss) and loss_err <= TRAIN_LOSS_RTOL * abs(want_loss),
+            f"float32 loss: card {got_loss} vs CPU {want_loss}")
+    grad_ratio, tols = _grad_gaps(got, want)
+    require(grad_ratio <= 1.0, f"float32 gradients: {grad_ratio} x the tolerance")
+    ocfg = make_optimizer("adamw", total_steps=TRAIN_LOOP["total_steps"])[0]
+    _, _, om = adamw_update(ocfg, None, adamw_init(cpu_model), cpu_model)
+    adamw_update(ocfg, None, adamw_init(dev_model), dev_model)
+    lr = float(om["lr"])
+    strict_err, loose_err, loose = 0.0, 0.0, 0
+    for (n, p), (_, q) in zip(dev_model.named_parameters(), cpu_model.named_parameters()):
+        d = (p.detach().cpu() - q.detach()).abs()
+        sure = want[n].abs() > tols[n]
+        if bool(sure.any()):
+            strict_err = max(strict_err, float(d[sure].max()))
+        if bool((~sure).any()):
+            loose_err = max(loose_err, float(d[~sure].max()))
+            loose += int((d[~sure] > TRAIN_PARAM_ATOL).sum())
+    require(strict_err <= TRAIN_PARAM_ATOL, f"AdamW step: params differ by {strict_err}")
+    require(loose_err <= 2 * lr + TRAIN_PARAM_ATOL,
+            f"AdamW step: small-gradient params differ by {loose_err} > 2 lr")
+    out = {"shape": [b, t], "loss_cpu": want_loss, "loss_card": got_loss, "loss_abs_err": loss_err,
+           "grad_err_over_tol": grad_ratio, "step_lr": lr, "param_max_abs_err": strict_err,
+           "small_grad_param_max_abs_err": loose_err, "small_grad_params_apart": loose,
+           "params": param_count(cpu_model)}
+    del cpu_model, dev_model, got, want
+    return out
+
+
+def _train_remat_check(cfg) -> dict:
+    """Remat on vs off on the card: the same gradients."""
+    b, t = TRAIN_REMAT
+    batch = SyntheticTokens(cfg.vocab_size, seq_len=t, global_batch=b, seed=4).batch_at(0)
+    model = build_model(cfg, device=DEV).init(torch.Generator(DEV).manual_seed(5))
+    grads, peaks = {}, {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        torch.cuda.reset_peak_memory_stats()
+        _, grads[remat] = _grads(build_model(c, device=DEV), model, batch)
+        peaks[remat] = torch.cuda.max_memory_allocated() / 1e9
+    worst = 0.0
+    for n, g in grads[False].items():
+        d = float((grads[True][n] - g).abs().max())
+        worst = max(worst, d / max(float(g.abs().max()), 1e-30))
+    require(worst <= TRAIN_REMAT_RTOL, f"remat changes the gradients by {worst} relative")
+    model.zero_grad(set_to_none=True)
+    del model, grads
+    return {"shape": [b, t], "max_rel_err": worst, "peak_gb_remat_off": peaks[False],
+            "peak_gb_remat_on": peaks[True]}
+
+
+def _train_step_profile(cfg, model, opt) -> dict:
+    """One training step's kernel launches and device-busy ms
+    (torch.profiler), after a warm-up step, at the loop's batch."""
+    step, _ = make_train_step(cfg, total_steps=TRAIN_LOOP["total_steps"], device=DEV)
+    ds = SyntheticTokens(cfg.vocab_size, seq_len=TRAIN_LOOP["seq_len"],
+                         global_batch=TRAIN_LOOP["global_batch"], seed=6)
+    model, opt, _ = step(model, opt, ds.batch_at(0))
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(model, opt, ds.batch_at(1))
+        torch.cuda.synchronize()
+    device_events = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device_events) / 1e3
+    span_ms = (max(e.time_range.end for e in device_events)
+               - min(e.time_range.start for e in device_events)) / 1e3 if device_events else 0.0
+    return {"launches_per_step": len(device_events) if device_events else None,
+            "kernel_names": len({e.name for e in device_events}),
+            "profiled_step_busy_ms": busy_ms, "profiled_step_span_ms": span_ms}
+
+
+def _saved_params(step: int) -> dict:
+    """The checkpoint's parameter arrays, read with numpy alone."""
+    src = TRAIN_DIR / f"step_{step:09d}"
+    manifest = json.loads((src / "manifest.json").read_text())
+    return {m["path"]: np.load(src / "arrays" / f"{m['idx']}.npy")
+            for m in manifest["leaves"] if m["path"].startswith("/params/")}
+
+
+def phase_train() -> dict:
+    """Single-process LM training on the card (see the module docstring,
+    phase 16)."""
+    t0 = time.perf_counter()
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest",
+            "float32 matmuls would run in TF32")
+    cfg = get_config(TRAIN_ARCH)
+    require(cfg.remat and cfg.optimizer == "adamw" and cfg.compute_dtype == "bfloat16"
+            and cfg.param_dtype == "float32", f"{cfg.name}: not the published training setup")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out = {"arch": cfg.name, "loop": TRAIN_LOOP}
+
+    hist: list[dict] = []
+    torch.cuda.reset_peak_memory_stats()
+    first = train(cfg, TrainLoopConfig(ckpt_dir=str(TRAIN_DIR), **TRAIN_LOOP),
+                  log_fn=lambda s, m: hist.append({"step": s, **m}))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in hist]
+    require(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    step_ms = [h["step_time_s"] * 1e3 for h in hist[1:]]
+    med = float(np.median(step_ms))
+    tokens = TRAIN_LOOP["global_batch"] * TRAIN_LOOP["seq_len"]
+    out.update(first_loss=losses[0], last_loss=losses[-1], losses=losses,
+               first_step_ms=hist[0]["step_time_s"] * 1e3, step_ms=step_ms,
+               median_step_ms=med, tokens_per_s=tokens / (med / 1e3), peak_gb=peak_gb,
+               grad_norms=[h["grad_norm"] for h in hist], stragglers=first["stragglers"])
+    emit({"phase": "train", "what": "loop", **out})
+
+    # Resume: the checkpoint at step 4, restored bit for bit, then on to 10.
+    saved_at = train_ckpt.latest_step(TRAIN_DIR)
+    require(saved_at == TRAIN_LOOP["ckpt_every"], f"latest checkpoint at {saved_at}")
+    restored = train(cfg, TrainLoopConfig(
+        **{**TRAIN_LOOP, "total_steps": saved_at + 1}, ckpt_dir=str(TRAIN_DIR)))["params"]
+    saved = _saved_params(saved_at)
+    back = dict(train_ckpt._flatten_with_paths(reference_tree(restored), "/params"))
+    require(set(back) == set(saved), "restored parameter paths != saved")
+    for k, arr in saved.items():
+        require(np.array_equal(back[k].cpu().numpy(), arr), f"restored {k} != saved")
+    del restored, back, saved
+    rhist: list[dict] = []
+    resumed = train(cfg, TrainLoopConfig(**{**TRAIN_LOOP, "total_steps": TRAIN_RESUME_STEPS},
+                                         ckpt_dir=str(TRAIN_DIR)),
+                    log_fn=lambda s, m: rhist.append({"step": s, **m}))
+    require(rhist and rhist[0]["step"] >= saved_at + 1, f"resumed at {rhist[:1]}")
+    require(all(math.isfinite(h["loss"]) for h in rhist), "non-finite resumed losses")
+    out["resume"] = {"from_step": saved_at, "first_step": rhist[0]["step"],
+                     "losses": [h["loss"] for h in rhist], "restored_bit_equal": True}
+    emit({"phase": "train", "what": "resume", **out["resume"]})
+
+    out["profile"] = _train_step_profile(cfg, resumed["params"], resumed["opt"])
+    out["profile"]["device_idle_share"] = 1 - out["profile"]["profiled_step_busy_ms"] / med
+    emit({"phase": "train", "what": "profile", **out["profile"]})
+    del first, resumed
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    out["f32_parity"] = _train_f32_parity(cfg)
+    emit({"phase": "train", "what": "f32_parity", **out["f32_parity"]})
+    out["remat"] = _train_remat_check(cfg)
+    emit({"phase": "train", "what": "remat", **out["remat"]})
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "train", "seconds": out["seconds"]})
+    return out
+
+
 def _drop_tensors(*results: dict) -> None:
     """Free the tensors the phases' results hold; keep their numbers."""
     def holds_tensor(v):
@@ -2694,9 +2937,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    if sys.argv[1:] == ["lm"]:   # the LM phase alone
+    alone = {"lm": phase_lm, "train": phase_train}
+    if len(sys.argv) == 2 and sys.argv[1] in alone:   # an LM phase alone
         timed("device", phase_device)
-        timed("lm", phase_lm)
+        timed(sys.argv[1], alone[sys.argv[1]])
         emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
         return 0
     # Every plan before the autotune phase is untuned: a store of this run's
@@ -2721,7 +2965,7 @@ def main() -> int:
     video = texture_video(4096, VIDEO_FRAMES, change_at=VIDEO_CHANGE)
     frames = torch.from_numpy(video).to(DEV)
     emit({"phase_seconds": "video", "seconds": time.perf_counter() - t0})
-    timed("temporal", phase_temporal, frames)
+    temporal = timed("temporal", phase_temporal, frames)
     ts = timed("texture_stream", phase_texture_stream, frames)
     del frames
     timed("pipeline", phase_pipeline, stack, main_run["feats"])
@@ -2735,6 +2979,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = timed("distributed", phase_distributed, shapes)["sharded_launches_per_rank"]
     timed("lm", phase_lm)
+    timed("train", phase_train)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
     runs = {name: main_run[f"{path}_launches"][name] for path, name in (
         ("features", "glcm_fused"), ("texture", "glcm_window"))}
@@ -2756,6 +3001,15 @@ def main() -> int:
          "max_abs_err": chk["fused_max_abs_err"], "ms": t["fused_ms"],
          "plain_ms": t["fused_plain_ms"], "bound_ms": t["fused_bound_ms"],
          "bound_by": t["fused_bound_by"], "library_ms": None},
+        # The same kernel on uint8 input (read as it is): the temporal
+        # stream's frames, one launch a frame.
+        {"name": "glcm_fused_uint8", "route": "cuda",
+         "source": "src/repro_torch/csrc/glcm_fused.cu",
+         "replaces": "src/repro/kernels/glcm_kernel.py:539",
+         "launches": temporal["stream_features_launches"]["glcm_fused"],
+         "max_abs_err": t["fused_uint8_max_abs_err"], "ms": t["fused_uint8_ms"],
+         "plain_ms": t["fused_uint8_plain_ms"], "bound_ms": t["fused_uint8_bound_ms"],
+         "bound_by": t["fused_uint8_bound_by"], "library_ms": None},
         {"name": "glcm_window", "route": "cuda",
          "source": "src/repro_torch/csrc/glcm_window.cu",
          "replaces": "src/repro/kernels/glcm_kernel.py:299",

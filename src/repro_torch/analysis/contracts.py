@@ -11,6 +11,12 @@ recorded call, and every spec-level guarantee (``accum="int"`` exactness,
 ``select=`` pruning, the float32/int32 dtype contract, signed rolling
 counts) to the rule enforcing it.
 
+The dtype contract is the port's own where it differs from the reference:
+count-only results (``glcm()``, a plan or a stream without normalize or
+features, and the engine's results for them) are exact int32 counts, where
+the reference's are float32 and round a cell past 2²⁴. Normalized matrices
+and features are float32 in both; only the Haralick tail is float64.
+
 Every field of ``Capabilities`` is classified here in exactly one of:
 
 * :data:`CAPABILITY_RULES` — fields whose claim is an observable property
@@ -90,6 +96,7 @@ DYNAMIC_CAPABILITIES: dict[str, str] = {
 SPEC_RULES: dict[str, str] = {
     "accum='int' exact integer accumulation": "accum-exact-width",
     "select= prunes the O(L^3) eigendecomposition": "pruned-no-eigh",
+    # int32 counts (float32 in the reference), float32 normalize/features.
     "float32/int32 dtype contract outside the Haralick tail": "no-f64-promotion",
     "temporal stream state accumulates in signed integers":
         "stream-signed-accum",

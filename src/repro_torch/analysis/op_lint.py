@@ -499,8 +499,8 @@ register_rule(Rule(
         "An accum='int' plan must accumulate votes in exact integer "
         "arithmetic: every count accumulator (bincount, scatter_add, "
         "index_add, accumulating index_put) and every vote matmul produces "
-        "an integer dtype, widened to float32 only on the final (…, L, L) "
-        "counts."
+        "an integer dtype; the plan's (…, L, L) counts stay int32 and widen "
+        "to float32 only where they are normalized."
     ),
     check=_check_accum_exact_width,
 ))

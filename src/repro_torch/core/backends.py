@@ -9,11 +9,12 @@ for ``spec.ndim == 3`` — and ``spec`` is resolved (no "auto"). With
 ``quant=(lo, span)`` (python floats, or per-image (B,) tensors) the stack
 holds RAW pixels that the backend bins where it consumes them
 (``caps.fused_quantize``); no quantized full-size image is made. Counts come
-back as float32: the one-hot schemes ("onehot", "blocked") vote in float32,
-or, under ``spec.accum == "int"``, in integers accumulated in int32 and
-widened only at the end, as the reference's do; every other backend counts
-in integers whatever the mode. Quantization ranges, symmetric/normalize
-and features are the plan's job (``core.plan``).
+back as exact int32, past 2²⁴ too (the reference widens them to float32,
+which rounds a cell past 2²⁴): the kernels and "scatter" count in integers;
+the one-hot schemes ("onehot", "blocked") vote in float32 (integral, exact
+below 2²⁴) or, under ``spec.accum == "int"``, in integers accumulated in
+int32, and hand back int32 either way. Quantization ranges,
+symmetric/normalize and features are the plan's job (``core.plan``).
 
 Region specs (tiles, sliding windows) go through :func:`compute_regions`:
 a backend that declares ``caps.region_grid`` serves them natively through
@@ -275,26 +276,24 @@ def resolve_scheme(
 
 
 def _scatter_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
-    return glcm_scatter_batch(img, spec.levels, spec.offsets(), quant=quant).to(torch.float32)
+    return glcm_scatter_batch(img, spec.levels, spec.offsets(), quant=quant)
 
 
 def _onehot_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
     return glcm_multi(
         img, spec.levels, offsets=spec.offsets(), copies=spec.copies, quant=quant,
         int_votes=spec.accum == "int",
-    ).to(torch.float32)
+    ).to(torch.int32)
 
 
 def _cuda_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
     chunk = spec.chunk if spec.chunk is not None else kops.DEFAULT_CHUNK
-    # int32 counts widen to float32 here, as the reference backends widen
-    # theirs; a cell above 2**24 rounds to the nearest float32.
     return torch.stack(
         [
             kops.glcm_cuda(
                 img, spec.levels, offset=off, chunk=chunk,
                 copies=max(spec.copies, 1), quant=quant,
-            ).to(torch.float32)
+            )
             for off in spec.offsets()
         ],
         dim=-3,
@@ -306,7 +305,7 @@ def _onehot_region_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> tor
         img, spec.levels, spec.pairs, spec.region_shape, spec.strides,
         offsets=spec.offsets(), copies=spec.copies, quant=quant,
         int_votes=spec.accum == "int",
-    ).to(torch.float32)
+    ).to(torch.int32)
 
 
 def _blocked_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
@@ -319,7 +318,7 @@ def _blocked_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Ten
             for off in spec.offsets()
         ],
         dim=-3,
-    ).to(torch.float32)
+    ).to(torch.int32)
 
 
 def _blocked_validate(spec: GLCMSpec, shape: tuple[int, ...]) -> None:
@@ -342,7 +341,7 @@ def _cuda_fused_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.
     return kops.glcm_cuda_multi(
         img, spec.levels, spec.pairs, tile_h=spec.tile_h, copies=spec.copies,
         quant=quant,
-    ).to(torch.float32)
+    )
 
 
 def _cuda_fused_local_partial(ext, levels, offset, local_n) -> torch.Tensor:
@@ -362,14 +361,14 @@ def _cuda_fused_region_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) ->
     return kops.glcm_cuda_windowed(
         img, spec.levels, spec.pairs, region_shape=spec.region_shape,
         stride=spec.strides, copies=spec.copies, quant=quant,
-    ).to(torch.float32)
+    )
 
 
 def _cuda_volume_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
     return kops.glcm_cuda_volume(
         img, spec.levels, spec.pairs, offsets=spec.offsets(), slab_d=spec.slab_d,
         copies=spec.copies, quant=quant,
-    ).to(torch.float32)
+    )
 
 
 def _cuda_volume_local_partial(ext, levels, offset, local_n) -> torch.Tensor:
@@ -389,12 +388,12 @@ def _native_quant(quant):
 def _native_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
     # The registry contract for the host-native backend (the temporal
     # delta and the region fallback come through here): NumPy counts of
-    # the stack, back on its device as float32. A batch plan calls host_fn
+    # the stack, back on its device as int32. A batch plan calls host_fn
     # directly instead. The round trip is the analyzer's "host" scope.
     with scope("host"):
         q = _native.quantize_stack(img.cpu().numpy(), spec, _native_quant(quant))
         counts = _native.counts_pairs(q, spec.levels, spec.offsets())
-        return torch.from_numpy(counts.astype(np.float32)).to(img.device)
+        return torch.from_numpy(counts.astype(np.int32)).to(img.device)
 
 
 def _cuda_volume_validate(spec: GLCMSpec, shape: tuple[int, ...]) -> None:

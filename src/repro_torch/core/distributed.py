@@ -280,10 +280,7 @@ def _region_rows(spec: GLCMSpec, per: int, r: int) -> slice:
 def _regions(plan, x: torch.Tensor) -> torch.Tensor:
     """(B, *spatial) levels → (B, *grid, L, L) int32 per-region counts."""
     with _stage("distributed.regions", x.device, backend=plan.backend.name):
-        mats = _backends.compute_regions(plan.backend, x, plan.spec)
-        # Region counts come back float32, exact while a region holds fewer
-        # than 2**24 pairs (a 4096² window).
-        return mats[..., 0, :, :].to(torch.int32)
+        return _backends.compute_regions(plan.backend, x, plan.spec)[..., 0, :, :]
 
 
 def _check_halo(n0: int, n: int, d0: int) -> int:
@@ -471,8 +468,8 @@ def glcm_auto_sharded(
     n0, d0 = shape[0], offset[0]
     lo, hi = r * n0 // n, (r + 1) * n0 // n
     # The (L, L) counts and, last, how many ranks hold a cell past 2**24:
-    # compute widens counts to float32, exact only below that. Summed with
-    # the counts, so every rank raises, or none.
+    # the one-hot schemes vote in float32, exact only below that. Summed
+    # with the counts, so every rank raises, or none.
     counts = torch.zeros(levels * levels + 1, dtype=torch.int64, device=device)
     if hi > lo:
         x = _extended(img, (slice(lo, min(hi + d0, n0)),), 0, 0, device)
@@ -483,7 +480,7 @@ def glcm_auto_sharded(
     total = _all_reduce(counts, ax.group)
     if total[-1]:
         raise ValueError(
-            "a cell of a rank's block reaches 2**24, past what the float32 counts "
-            "of compute hold exactly; use glcm_sharded"
+            "a cell of a rank's block reaches 2**24, past what float32 votes "
+            "hold exactly; use glcm_sharded"
         )
     return total[:-1].reshape(levels, levels).to(torch.int32)

@@ -14,7 +14,9 @@ a frozen :class:`GLCMSpec` and run it through :func:`compile_plan`. With
 map), the region grid between the batch and the pair axes.
 ``device=None`` means the current CUDA device, and without a card they
 raise RuntimeError; only ``device="cpu"`` runs on the CPU. Results are
-float32 tensors on the plan's device.
+tensors on the plan's device: count-only ``glcm()`` gives exact int32 counts
+(the reference gives float32, which rounds a cell past 2²⁴), normalized
+matrices and features are float32.
 
 Schemes: "scatter", "onehot", "blocked", "native" (NumPy counting on the
 host), "cuda" (pair-stream vote kernel), "cuda_fused" (fused multi-offset
@@ -82,7 +84,13 @@ def glcm(
     accum: str = "auto",
     device=None,
 ) -> torch.Tensor:
-    """Gray-level co-occurrence matrix of image(s) or volume(s), float32.
+    """Gray-level co-occurrence matrix of image(s) or volume(s): exact int32
+    counts, or float32 with ``normalize=True``.
+
+    The reference returns float32 counts, which round a cell past 2²⁴ (a
+    constant 4097 x 4098 image at d = 1 holds 16 785 409 pairs in one cell;
+    float32 makes it 16 785 408). The port keeps the kernels' int32 counts,
+    equal to the reference's values wherever those are exact.
 
     (H, W) input → (L, L); (B, H, W) input → (B, L, L). With ``ndim=3`` the
     input is a (D, H, W) volume (or stack) and ``theta`` names one of the 13

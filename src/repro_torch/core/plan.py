@@ -31,7 +31,9 @@ consults it.
 Devices: ``device=None`` means the current CUDA device. Only an explicit
 ``device="cpu"`` runs on the CPU; asking for CUDA on a machine without a
 card raises RuntimeError rather than carrying on elsewhere. The plan moves
-its input to its device and returns float32 tensors there.
+its input to its device and returns tensors there: exact int32 counts when
+it neither normalizes nor computes features (the reference returns float32,
+which rounds a cell past 2²⁴), else float32.
 
 Quantization placement: for ``quantize="uniform"`` on a backend declaring
 ``caps.fused_quantize`` (all four built-ins) the plan does not quantize. It
@@ -46,7 +48,7 @@ shape is one frame's (no batch axis) and the result is a
 :class:`~repro_torch.core.stream_state.GLCMStreamPlan` with ``init_state()``
 / ``update(state, frame)`` / ``rolling(video)``, cached apart from batch
 plans. Its per-frame delta is this plan's own quantize→vote path on a unit
-batch, cast to int32.
+batch: the backend's int32 counts as they are.
 
 A ``caps.host_native`` backend ("native", picked only by name) counts on the
 host with NumPy; the symmetric/normalize/features tail then runs on the
@@ -117,8 +119,9 @@ class GLCMPlan:
     ``spec`` is resolved (``spec.scheme`` names a registered backend, never
     "auto"). ``grid`` is the region grid: () for "global", else (gh, gw) or
     (gd, gh, gw). Calling the plan maps (*spatial) → (*grid, n_pairs, L, L)
-    or (B, *spatial) → (B, *grid, n_pairs, L, L) float32 on ``device``; with
-    ``features`` the trailing (L, L) becomes the selected Haralick features.
+    or (B, *spatial) → (B, *grid, n_pairs, L, L) on ``device``: int32
+    counts, or float32 with ``spec.normalize``; with ``features`` the
+    trailing (L, L) becomes the selected Haralick features (float32).
     """
 
     spec: GLCMSpec
@@ -469,6 +472,7 @@ def compile_plan(
         if resolved.symmetric:
             mats = mats + mats.transpose(-1, -2)
         if resolved.normalize:
+            mats = mats.to(torch.float32)   # counts stay int32 until they divide
             mats = mats / mats.sum(dim=(-2, -1), keepdim=True).clamp_min(1.0)
         if features:
             with scope("tail"):  # float64 inside, by design (core.haralick)
@@ -498,13 +502,11 @@ def compile_plan(
 
     if temporal_window is not None:
         # The per-frame vote delta is this plan's own quantize→vote path on
-        # a unit batch. Counts round-trip through int32: the backends'
-        # float32 counts are integral (exact below 2**24 per cell), and the
-        # rolling state must be signed, since expiry subtracts.
+        # a unit batch: the backend's exact int32 counts, which the signed
+        # rolling state adds and, on expiry, subtracts.
         def delta_fn(frame: torch.Tensor) -> torch.Tensor:
             stack, qargs = prepare(frame[None])
-            counts = _backends.compute_regions(backend, stack, resolved, quant=qargs)
-            return counts[0].to(torch.int32)
+            return _backends.compute_regions(backend, stack, resolved, quant=qargs)[0]
 
         plan = GLCMStreamPlan(
             spec=resolved, backend=backend, shape=shape, window=temporal_window,
@@ -518,9 +520,7 @@ def compile_plan(
     def run(img) -> torch.Tensor:
         x = as_input(img)
         stack, qargs = prepare(x if batched else x[None])
-        mats = _backends.compute_regions(backend, stack, resolved, quant=qargs)
-        mats = mats.to(torch.float32)
-        mats = tail(mats)
+        mats = tail(_backends.compute_regions(backend, stack, resolved, quant=qargs))
         return mats if batched else mats[0]
 
     def run_host(img) -> torch.Tensor:
@@ -540,7 +540,7 @@ def compile_plan(
             elif quant is not None:
                 stack = torch.stack([quant(im) for im in torch.from_numpy(stack)]).numpy()
             counts = backend.host_fn(stack, resolved, qargs)
-            mats = torch.from_numpy(np.asarray(counts, np.float32)).to(device)
+            mats = torch.from_numpy(np.asarray(counts, np.int32)).to(device)
         mats = tail(mats)
         return mats if batched else mats[0]
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "PAPER_LEVELS",
     "quantize_uniform",
     "quantize_equalized",
     "assert_levels",
@@ -28,6 +29,9 @@ __all__ = [
     "repeat_params",
     "is_identity_quantize",
 ]
+
+# Gray levels used throughout the paper.
+PAPER_LEVELS = (8, 32)
 
 _TINY = float(torch.finfo(torch.float32).tiny)
 

@@ -31,11 +31,12 @@ Warm-up: the ring starts at zero, so for the first ``window`` frames the
 expiry subtracts zero and ``counts`` is the exact sum over the frames seen so
 far (a growing window until it fills).
 
-Exactness bound: the per-frame delta comes from the plan's backend, whose
-float32 widening (as in the reference) is exact only for cells below 2²⁴. At
-d = 1 a 4096² frame holds at most 4096·4095 = 16 773 120 pairs per offset,
-under 2²⁴ = 16 777 216; larger frames can round. The accumulated int32 cell
-is bounded by ``window`` times the per-frame pair count.
+Exactness bound: the per-frame delta is the plan's backend's int32 counts,
+exact past 2²⁴ (the reference widens them to float32, which rounds a cell
+past 2²⁴ = 16 777 216, e.g. a constant 4097 x 4098 frame at d = 1). The
+accumulated int32 cell is bounded by ``window`` times the per-frame pair
+count, and so is exact below 2³¹. Count-only outputs are these int32
+counts; normalize and features give float32.
 
 :class:`GLCMStreamPlan` is what ``core.plan.compile_plan`` returns for
 ``temporal_window=``: ``init_state()`` / ``update(state, frame)`` (the delta
@@ -158,7 +159,7 @@ class GLCMStreamPlan:
     ) -> tuple[GLCMStreamState, torch.Tensor]:
         """state × frame → (state', counts-or-features)."""
         state = stream_step(state, self.delta_fn(frame), self.window)
-        return state, self.tail_fn(state.counts.to(torch.float32))
+        return state, self.tail_fn(state.counts)
 
     def init_state(self) -> GLCMStreamState:
         return init_state(self.window, self.grid, self.spec.n_pairs, self.spec.levels,

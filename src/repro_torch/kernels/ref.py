@@ -18,6 +18,7 @@ import torch
 
 __all__ = [
     "OFFSETS",
+    "PAPER_THETAS",
     "DIRECTIONS_3D",
     "glcm_offsets",
     "glcm_offsets_3d",
@@ -37,6 +38,9 @@ OFFSETS: dict[int, tuple[int, int]] = {
     90: (1, 0),
     135: (1, 1),
 }
+
+# The paper's four in-plane angles (degrees).
+PAPER_THETAS = (0, 45, 90, 135)
 
 # The 13 unique 3-D co-occurrence directions, one per {v, -v} pair of the
 # 26-neighborhood. 0..3 are the in-plane thetas (dz = 0) in OFFSETS order;

@@ -7,7 +7,12 @@ differ):
 
 ``sdpa_chunked``  — online-softmax attention over KV chunks (the "flash"
     pattern): the (T×S) score matrix is never materialized; a Python loop
-    over chunks replaces the reference's ``lax.scan``.
+    over chunks replaces the reference's ``lax.scan``. When autograd
+    records, each chunk's body runs under ``torch.utils.checkpoint``, as the
+    reference's runs under ``jax.checkpoint``: the backward pass recomputes
+    the chunk's float32 scores instead of keeping them (at smollm-135m's
+    8 x 2048 one (B, KV, G, T, chunk) score tensor is 604 MB, and autograd
+    would keep several per chunk and layer).
 
 ``sdpa_direct``   — unchunked masked attention for decode (T == 1..few):
     scores are (B, KV, G, T, S).
@@ -29,7 +34,7 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.models.common import dense_init_, dtype_of
+from repro_torch.models.common import dense_init_, dtype_of, remat_call
 from repro_torch.models.layers import apply_rope
 from repro_torch.sharding.logical import constrain
 
@@ -104,6 +109,21 @@ def sdpa_direct(q, k, v, q_pos, k_pos, *, causal: bool = True, window=None) -> t
     return y.reshape(b, t, h, d)
 
 
+def _chunk_body(qg, kb, vb, q_pos, pb, m, l, acc, *, scale: float, causal: bool, window):
+    """One KV chunk of the online softmax: (m, l, acc) → their update."""
+    s = torch.einsum("btkgd,bskd->bkgts", qg, kb).float() * scale
+    s = constrain(s, "batch", "heads", None, "seq", None)
+    ok = _mask(q_pos, pb, causal=causal, window=window)
+    s = torch.where(ok[:, None, None, :, :], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p_ = torch.exp(s - m_new[..., None])
+    l = l * alpha + p_.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum(
+        "bkgts,bskd->bkgtd", p_.to(vb.dtype), vb).float()
+    return m_new, l, acc
+
+
 def sdpa_chunked(q, k, v, q_pos, k_pos, *, causal: bool = True, window=None,
                  chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention over KV chunks (flash pattern, tensor ops)."""
@@ -133,18 +153,8 @@ def sdpa_chunked(q, k, v, q_pos, k_pos, *, causal: bool = True, window=None,
         sl = slice(i * chunk, (i + 1) * chunk)
         kb = constrain(k[:, sl], "batch", None, "heads", None)
         vb = constrain(v[:, sl], "batch", None, "heads", None)
-        pb = k_pos[:, sl]
-        s = torch.einsum("btkgd,bskd->bkgts", qg, kb).float() * scale
-        s = constrain(s, "batch", "heads", None, "seq", None)
-        ok = _mask(q_pos, pb, causal=causal, window=window)
-        s = torch.where(ok[:, None, None, :, :], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p_ = torch.exp(s - m_new[..., None])
-        l = l * alpha + p_.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bkgts,bskd->bkgtd", p_.to(vb.dtype), vb).float()
-        m = m_new
+        m, l, acc = remat_call(True, _chunk_body, qg, kb, vb, q_pos, k_pos[:, sl], m, l, acc,
+                               scale=scale, causal=causal, window=window)
     y = acc / torch.clamp(l, min=1e-30)[..., None]
     y = y.permute(0, 3, 1, 2, 4)  # (B, T, KV, G, D)
     return y.reshape(b, t, h, d).to(q.dtype)

@@ -15,10 +15,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 __all__ = ["cast_tree", "dense_init_", "dtype_of", "embed_init_", "init_module",
-           "param_bytes", "param_count", "tree_paths"]
+           "param_bytes", "param_count", "remat_call", "tree_paths"]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -53,6 +54,16 @@ def init_module(module: nn.Module, gen: torch.Generator) -> nn.Module:
         if fn is not None:
             fn(gen)
     return module
+
+
+def remat_call(enabled: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, recomputed in the backward pass instead of
+    keeping its activations when ``enabled`` and autograd is recording: the
+    port's counterpart of the reference's ``jax.checkpoint``. Prefill and
+    decode (no grad) call ``fn`` as it is."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
 
 
 def param_count(params: nn.Module) -> int:

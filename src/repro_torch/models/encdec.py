@@ -7,6 +7,10 @@ Decoder: causal self-attention + cross-attention + GELU MLP.
 Decode caches: per-layer self KV (grows) + cross KV (static, built once),
 stacked over the decoder's layers as in the reference; ``encdec_decode_step``
 updates the self KV in place.
+
+``cfg.remat`` wraps each encoder and decoder layer's body in
+``torch.utils.checkpoint`` when autograd records, as the reference wraps
+its scan bodies in ``jax.checkpoint``; prefill and decode are unchanged.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from repro_torch.models.attention import (
     sdpa_chunked,
     sdpa_direct,
 )
-from repro_torch.models.common import dtype_of, init_module
+from repro_torch.models.common import dtype_of, init_module, remat_call
 from repro_torch.models.layers import (
     MLP,
     Embeddings,
@@ -81,6 +85,16 @@ def _positions(b: int, t: int, device) -> torch.Tensor:
     return torch.arange(t, dtype=torch.int32, device=device).expand(b, t)
 
 
+def _encoder_layer(cfg, pi: EncoderLayer, x, pos, chunk: int):
+    h = apply_norm(cfg, pi.ln1, x)
+    q = project_q(cfg, pi.attn, h, None)
+    k, v = project_kv(cfg, pi.attn, h, None)
+    att = sdpa_chunked(q, k, v, pos, pos, causal=False, chunk=chunk)
+    x = x + output_proj(pi.attn, att)
+    x = x + apply_mlp(cfg, pi.mlp, apply_norm(cfg, pi.ln2, x))
+    return constrain(x, "batch", "seq", None)
+
+
 def encode(cfg, params: EncDecLM, enc_embeds: torch.Tensor, *, chunk: int = 1024):
     """Frame embeddings (B, T_enc, D) → encoder memory (B, T_enc, D)."""
     cdt = dtype_of(cfg.compute_dtype)
@@ -88,13 +102,7 @@ def encode(cfg, params: EncDecLM, enc_embeds: torch.Tensor, *, chunk: int = 1024
     pos = _positions(b, t, enc_embeds.device)
     x = enc_embeds.to(cdt) + sinusoidal_positions(pos, cfg.d_model).to(cdt)
     for pi in params.encoder:
-        h = apply_norm(cfg, pi.ln1, x)
-        q = project_q(cfg, pi.attn, h, None)
-        k, v = project_kv(cfg, pi.attn, h, None)
-        att = sdpa_chunked(q, k, v, pos, pos, causal=False, chunk=chunk)
-        x = x + output_proj(pi.attn, att)
-        x = x + apply_mlp(cfg, pi.mlp, apply_norm(cfg, pi.ln2, x))
-        x = constrain(x, "batch", "seq", None)
+        x = remat_call(cfg.remat, _encoder_layer, cfg, pi, x, pos, chunk)
     return apply_norm(cfg, params.enc_final, x)
 
 
@@ -105,6 +113,18 @@ def _embed_decoder(cfg, params, tok, cdt):
     return x + sinusoidal_positions(dpos, cfg.d_model).to(cdt), dpos
 
 
+def _decoder_layer(cfg, pi: DecoderLayer, x, dpos, memory, mpos, chunk: int):
+    h = apply_norm(cfg, pi.ln1, x)
+    q = project_q(cfg, pi.self_attn, h, None)
+    k, v = project_kv(cfg, pi.self_attn, h, None)
+    att = sdpa_chunked(q, k, v, dpos, dpos, causal=True, chunk=chunk)
+    x = x + output_proj(pi.self_attn, att)
+    h2 = apply_norm(cfg, pi.ln2, x)
+    x = x + cross_attention(cfg, pi.cross_attn, h2, memory, dpos, mpos, chunk=chunk)
+    x = x + apply_mlp(cfg, pi.mlp, apply_norm(cfg, pi.ln3, x))
+    return constrain(x, "batch", "seq", None)
+
+
 def encdec_forward(cfg, params: EncDecLM, batch: dict, *, chunk: int = 1024):
     """batch: enc_embeds (B,T_enc,D) + tokens (B,T_dec) → (logits, aux=0)."""
     cdt = dtype_of(cfg.compute_dtype)
@@ -113,15 +133,7 @@ def encdec_forward(cfg, params: EncDecLM, batch: dict, *, chunk: int = 1024):
     mpos = _positions(memory.shape[0], memory.shape[1], memory.device)
     x, dpos = _embed_decoder(cfg, params, batch["tokens"], cdt)
     for pi in params.decoder:
-        h = apply_norm(cfg, pi.ln1, x)
-        q = project_q(cfg, pi.self_attn, h, None)
-        k, v = project_kv(cfg, pi.self_attn, h, None)
-        att = sdpa_chunked(q, k, v, dpos, dpos, causal=True, chunk=chunk)
-        x = x + output_proj(pi.self_attn, att)
-        h2 = apply_norm(cfg, pi.ln2, x)
-        x = x + cross_attention(cfg, pi.cross_attn, h2, memory, dpos, mpos, chunk=chunk)
-        x = x + apply_mlp(cfg, pi.mlp, apply_norm(cfg, pi.ln3, x))
-        x = constrain(x, "batch", "seq", None)
+        x = remat_call(cfg.remat, _decoder_layer, cfg, pi, x, dpos, memory, mpos, chunk)
     x = apply_norm(cfg, params.dec_final, x)
     return unembed(cfg, params.embeddings, x), torch.zeros((), dtype=torch.float32,
                                                            device=x.device)

@@ -15,8 +15,9 @@ moved to the api's device):
                                         "tokens": (B,T)}
 
 ``prefill`` and ``decode_step`` run without autograd; ``decode_step``
-updates ``caches`` in place. ``forward`` and ``loss`` keep autograd (the
-training slice differentiates them).
+updates ``caches`` in place. ``forward`` and ``loss`` keep autograd:
+``launch.steps.make_train_step`` differentiates ``loss`` (with
+``cfg.remat``, each layer is recomputed in the backward pass).
 """
 
 from __future__ import annotations

@@ -6,9 +6,12 @@ the reference stacks a group's params on a leading axis and runs them with
 ``lax.scan``, the port keeps one module per layer in an ``nn.ModuleList``
 (``group_{i}``) and loops over it. Heterogeneous stacks (hymba:
 full-attention layers at {0, mid, last} between SWA runs) become multiple
-groups run in sequence. ``jax.checkpoint`` (``cfg.remat``) and
-``cfg.scan_unroll`` are training / compile-time concerns of the reference
-and do nothing here (training is ROADMAP item 18b).
+groups run in sequence. ``cfg.remat`` wraps each layer's body in
+``torch.utils.checkpoint`` when autograd records (``lm_forward`` under
+training), as the reference wraps its scan body in ``jax.checkpoint``:
+the backward pass recomputes a layer's activations instead of keeping them.
+Prefill and decode run without grad and are unchanged. ``cfg.scan_unroll``
+is a compile-time concern of the reference and does nothing here.
 
 Cache layout per group (decode), stacked over the group's layers as in the
 reference:
@@ -43,7 +46,7 @@ from repro_torch.models.attention import (
     sdpa_direct,
     self_attention,
 )
-from repro_torch.models.common import dtype_of, embed_init_, init_module
+from repro_torch.models.common import dtype_of, embed_init_, init_module, remat_call
 from repro_torch.models.layers import (
     MLP,
     Embeddings,
@@ -56,6 +59,9 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import MoE, apply_moe
 from repro_torch.sharding.logical import constrain
+
+FULL_WINDOW = 0  # sentinel: window<=0 disables the sliding-window mask
+
 
 def shard_friendly_xent(lg: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy. The reference extracts the gold logit with an
@@ -355,8 +361,8 @@ def lm_forward(cfg, params: TransformerLM, batch: dict, *, chunk: int = 1024):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, g in enumerate(params.groups):
         for layer in params.group(i):
-            x, aux = apply_layer(cfg, g.kind, layer, x, positions, _window_arg(g), aux,
-                                 chunk=chunk)
+            x, aux = remat_call(cfg.remat, apply_layer, cfg, g.kind, layer, x, positions,
+                                _window_arg(g), aux, chunk=chunk)
             x = constrain(x, "batch", "seq", None)
     x = apply_norm(cfg, params.final_norm, x)
     if n_prefix:

@@ -248,7 +248,7 @@ def test_one_rank_world_matches_reference(world1):
 
 
 def test_auto_refuses_counts_float32_cannot_hold(world1, monkeypatch):
-    # compute widens counts to float32; a cell at 2**24 may be rounded.
+    # The one-hot schemes vote in float32; a cell at 2**24 may be rounded.
     monkeypatch.setattr(tdist._backends, "compute_regions",
                         lambda *a, **k: torch.full((1, 1, 8, 8), 2.0**24))
     with pytest.raises(ValueError, match=r"reaches 2\*\*24"):

@@ -68,7 +68,8 @@ def test_glcm_counts_equal_reference(levels, batched, quantize):
         want = np.asarray(jax_glcm(jnp.asarray(img), levels, d, theta, quantize=quantize))
         for scheme in SCHEMES:
             got = glcm(img, levels, d, theta, quantize=quantize, scheme=scheme, device="cpu")
-            assert got.dtype == torch.float32 and got.device.type == "cpu"
+            # Count-only results keep exact int32 counts (the reference: float32).
+            assert got.dtype == torch.int32 and got.device.type == "cpu"
             np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{scheme} {d},{theta}")
 
 

@@ -98,7 +98,9 @@ def test_native_plan_equals_onehot_plan(batched, kw):
     plan = tplan.compile_plan(spec, shape, device=CPU)
     assert plan.host_native and plan.spec.scheme == "native"
     got = plan(img)
-    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    # Count-only plans give int32 counts, normalized ones float32.
+    want_dtype = torch.float32 if kw.get("normalize") else torch.int32
+    assert got.dtype == want_dtype and got.device.type == "cpu"
     want = tplan.compile_plan(spec.replace(scheme="onehot"), shape, device=CPU)(img)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
     jax_got = jax_compile_plan(JaxSpec(**{**kw, "levels": 8, "pairs": ((1, 0), (1, 90)),
@@ -158,7 +160,7 @@ def test_native_compute_through_the_registry_contract():
     b = backends.get_backend("native")
     got = b.compute(torch.from_numpy(raw), spec,
                     quant=(torch.from_numpy(lo), torch.from_numpy(span)))
-    assert got.dtype == torch.float32
+    assert got.dtype == torch.int32   # backends hand back exact int32 counts
     np.testing.assert_array_equal(got.numpy(), native.native_counts(raw, spec, (lo, span)))
 
 

@@ -269,7 +269,7 @@ def test_region_counts_equal_reference(region, quantize, scheme):
     p = tplan.compile_plan(spec, shape, device="cpu")
     assert p.grid == jplan.grid
     got = p(img)
-    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape   # count-only
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -100,7 +100,7 @@ def test_rolling_bit_exact_vs_recompute(region, scheme):
     spec = GLCMSpec(levels=LEVELS, pairs=PAIRS, scheme=scheme, **REGIONS[region])
     plan = _stream(spec)
     got = plan.rolling(video)
-    assert got.dtype == torch.float32 and plan.grid == spec.region_grid(*SHAPE)
+    assert got.dtype == torch.int32 and plan.grid == spec.region_grid(*SHAPE)   # count-only
     ref = _windowed_sums(_per_frame_counts(spec, video), WINDOW)
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(got.numpy(), _jax_rolling(spec, video))
