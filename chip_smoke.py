@@ -179,6 +179,40 @@ Phases, each printing one JSON line:
     parameters bit for bit; TF32 off. ``python3 chip_smoke.py train`` runs
     the device and ``train`` phases alone.
 
+17. ``mesh`` (the LM sharded on a device mesh, ``repro_torch.sharding`` on
+    DTensor and ``train.loop.train(mesh=)``; plain PyTorch on the card, no
+    kernel of ``csrc``). First a probe line: each functional collective
+    DTensor issues (all_gather_into_tensor, reduce_scatter_tensor,
+    all_reduce, all_to_all_single) on CUDA tensors over its own 4-rank gloo
+    world, as it is and routed through the c10d call
+    (``sharding.gloo_cuda``, which every CUDA mesh over gloo installs); every
+    routed one must work. Then 4 gloo ranks (``torch.multiprocessing.spawn``,
+    a ``FileStore``) share cuda:0 on a (2, 2) ("data", "model") mesh: (a)
+    smollm-135m as published (float32 master weights, bfloat16 compute,
+    remat on, AdamW) through ``train(mesh=)``, 4 steps of 8 x 2048 tokens from
+    the train phase's seed, a checkpoint at step 2: every step's loss within
+    ``MESH_LOSS_RTOL`` of one process's on the card; printed: the median step
+    ms after the first, tokens/s, each rank's peak allocation, the
+    collectives of one more step by kind and count (``CommDebugMode``), and
+    the local shapes of ``embeddings/embed`` (vocab over "model") and of a
+    batch (batch over "data", sequence over "model"), and one more step
+    under ``torch.profiler`` on every rank: its wall ms, the ms its kernels
+    kept the card busy and the ms its host spent in collectives; (b) float32
+    at 2 x 256 on the mesh against one process on the card (loss, every
+    gradient, one AdamW step, ``TRAIN_*`` tolerances, the small-gradient elements apart
+    counted); (c) the step-2 checkpoint restored onto a (4, 1) mesh (through
+    ``train``, and by ``restore(shardings=)`` for a bit-for-bit check of
+    every leaf), re-placed onto (1, 4) by ``reshard_tree`` (bit for bit) and
+    restored onto one process, one further step on each within
+    ``MESH_LOSS_RTOL`` of the run's; (d) the run's first step on a 1-rank
+    NCCL world with a (1, 1) mesh; (e) no launch of a ``csrc`` kernel in the
+    parent or any rank; (f) the other archs (``MESH_ARCHS``, reduced, float32:
+    olmo, whisper in both layouts, mamba2, hymba, internlm2, llava,
+    smollm-360m, mixtral, arctic): the loss and every gradient on the mesh
+    against one process on the card, and ``train(mesh=)`` with
+    ``grad_accum > 1`` raising with its ROADMAP row. ``python3 chip_smoke.py mesh`` runs the device and
+    ``mesh`` phases alone.
+
 The store of autotuner winners is ``build/autotune.json``
 (``REPRO_TORCH_AUTOTUNE_PATH``), deleted before any plan is compiled, so
 every phase before ``autotune`` runs the untuned "auto" choice.
@@ -258,8 +292,18 @@ from repro_torch.models.convert import reference_tree  # noqa: E402
 from repro_torch.models.model import model_module  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.data.tokens import SyntheticTokens  # noqa: E402
+from repro_torch.models.convert import load_reference_tree  # noqa: E402
+from repro_torch.sharding import gloo_cuda  # noqa: E402
 from repro_torch.train import checkpoint as train_ckpt  # noqa: E402
-from repro_torch.train.loop import TrainLoopConfig, train  # noqa: E402
+from repro_torch.train.fault_tolerance import reshard_tree  # noqa: E402
+from repro_torch.train.loop import (  # noqa: E402
+    TrainLoopConfig,
+    on_mesh,
+    shard_batch,
+    shard_params,
+    state_shardings,
+    train,
+)
 from repro_torch.train.optimizer import adamw_init, adamw_update, make_optimizer  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     DIRECTIONS_3D,
@@ -2753,6 +2797,27 @@ def _grad_gaps(got: dict, want: dict) -> tuple[float, dict]:
     return worst, tols
 
 
+def _adamw_gaps(got: dict, want: dict, grads: dict, tols: dict, lr: float):
+    """After one AdamW step from the same weights: the largest gap where the
+    gradient exceeds its tolerance (within TRAIN_PARAM_ATOL), the largest
+    elsewhere (within 2 · lr + TRAIN_PARAM_ATOL: the step's sign can differ
+    there) and how many elements there are apart by more than the strict
+    tolerance. ``got`` / ``want`` / ``grads`` map names to CPU tensors."""
+    strict_err, loose_err, loose = 0.0, 0.0, 0
+    for n, q in want.items():
+        d = (got[n] - q.detach()).abs()
+        sure = grads[n].abs() > tols[n]
+        if bool(sure.any()):
+            strict_err = max(strict_err, float(d[sure].max()))
+        if bool((~sure).any()):
+            loose_err = max(loose_err, float(d[~sure].max()))
+            loose += int((d[~sure] > TRAIN_PARAM_ATOL).sum())
+    require(strict_err <= TRAIN_PARAM_ATOL, f"AdamW step: params differ by {strict_err}")
+    require(loose_err <= 2 * lr + TRAIN_PARAM_ATOL,
+            f"AdamW step: small-gradient params differ by {loose_err} > 2 lr")
+    return strict_err, loose_err, loose
+
+
 def _train_f32_parity(cfg) -> dict:
     """Float32 card vs CPU: the loss, every gradient, one AdamW step."""
     cfg32 = _f32(cfg)
@@ -2773,18 +2838,9 @@ def _train_f32_parity(cfg) -> dict:
     _, _, om = adamw_update(ocfg, None, adamw_init(cpu_model), cpu_model)
     adamw_update(ocfg, None, adamw_init(dev_model), dev_model)
     lr = float(om["lr"])
-    strict_err, loose_err, loose = 0.0, 0.0, 0
-    for (n, p), (_, q) in zip(dev_model.named_parameters(), cpu_model.named_parameters()):
-        d = (p.detach().cpu() - q.detach()).abs()
-        sure = want[n].abs() > tols[n]
-        if bool(sure.any()):
-            strict_err = max(strict_err, float(d[sure].max()))
-        if bool((~sure).any()):
-            loose_err = max(loose_err, float(d[~sure].max()))
-            loose += int((d[~sure] > TRAIN_PARAM_ATOL).sum())
-    require(strict_err <= TRAIN_PARAM_ATOL, f"AdamW step: params differ by {strict_err}")
-    require(loose_err <= 2 * lr + TRAIN_PARAM_ATOL,
-            f"AdamW step: small-gradient params differ by {loose_err} > 2 lr")
+    strict_err, loose_err, loose = _adamw_gaps(
+        {n: p.detach().cpu() for n, p in dev_model.named_parameters()},
+        dict(cpu_model.named_parameters()), want, tols, lr)
     out = {"shape": [b, t], "loss_cpu": want_loss, "loss_card": got_loss, "loss_abs_err": loss_err,
            "grad_err_over_tol": grad_ratio, "step_lr": lr, "param_max_abs_err": strict_err,
            "small_grad_param_max_abs_err": loose_err, "small_grad_params_apart": loose,
@@ -2913,6 +2969,473 @@ def phase_train() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# mesh: the LM sharded on a device mesh (ROADMAP Queue 1 item B)
+# ---------------------------------------------------------------------------
+
+# smollm-135m as published on a (2, 2) ("data", "model") mesh of MESH_WORLD
+# gloo ranks that share cuda:0 (NCCL refuses two ranks on one card):
+# float32 master weights, bfloat16 compute, remat on, AdamW, through
+# train.loop.train(mesh=) with the train phase's loop seed, MESH_LOOP steps of
+# 8 x 2048 tokens and a checkpoint at step 2. Every step's loss within
+# MESH_LOSS_RTOL of one process's on the card: bfloat16 compute, and each rank's
+# GEMMs have other shapes than one process's, so other summation orders.
+MESH_WORLD = 4
+MESH_SHAPE = (2, 2)
+MESH_DIR = ROOT / "build" / "mesh"
+MESH_LOOP = dict(total_steps=4, seq_len=2048, global_batch=8, ckpt_every=2, log_every=1)
+# Sound runs on the card read at most 9.5e-6; a planted fault (each rank
+# updating on its own shard's gradient, the all-reduce of every replicated
+# weight's gradient dropped) reads 8.6e-4, 4.7e-3 and 4.5e-3 at steps 2-4
+# (PERF.md).
+MESH_LOSS_RTOL = 1e-4
+# (b) Float32 on the mesh against one process on the card at B = 2, T = 256,
+# the same weights: the loss, every gradient and one AdamW step within the
+# train phase's TRAIN_* tolerances.
+MESH_CHECK = (2, 256)
+# (c) Elastic re-meshing: the step-2 checkpoint restored onto (4, 1) (through
+# train(mesh=), and by restore(shardings=) for the bit-for-bit check) and
+# re-placed by reshard_tree onto (1, 4); one further step on each.
+MESH_ELASTIC = ((4, 1), (1, 4))
+# (f) The other archs, reduced, float32: the loss and every gradient on the
+# mesh against one process on the card (TRAIN_* tolerances); and
+# grad_accum > 1, which the mesh still refuses.
+MESH_ARCHS = (("olmo-1b", "context"), ("whisper-medium", "context"),
+              ("whisper-medium", "heads_tp"), ("mamba2-130m", "context"),
+              ("hymba-1.5b", "context"), ("internlm2-1.8b", "context"),
+              ("llava-next-34b", "context"), ("smollm-360m", "context"),
+              ("mixtral-8x7b", "context"), ("arctic-480b", "context"))
+MESH_ARCH_BATCH = (4, 64)
+MESH_TIMEOUT_S = 600
+# Host spans of a profiled step that are collectives: the functional ops
+# DTensor issues (routed through c10d), c10d's own, gloo's.
+MESH_COLLECTIVE_SPANS = ("_c10d_functional::", "c10d::", "gloo:")
+# The probe: each functional collective DTensor issues, alone, on CUDA
+# tensors over a 4-rank gloo world of its own (one that kills its process
+# must not take the phase down with it), beside the c10d call.
+MESH_PROBE = r'''
+import sys, torch, torch.distributed as dist
+from datetime import timedelta
+rank, store, op, route, src = sys.argv[1:6]
+D = torch.device("cuda", 0)
+torch.cuda.set_device(D)
+dist.init_process_group("gloo", init_method="file://" + store, rank=int(rank), world_size=4,
+                        timeout=timedelta(seconds=60))
+if route == "1":
+    sys.path.insert(0, src)
+    from repro_torch.sharding.gloo_cuda import route_functional_collectives
+    route_functional_collectives()
+x = torch.arange(8.0, device=D) + int(rank)
+F, gn = torch.ops._c10d_functional, dist.group.WORLD.group_name
+if op == "all_gather_into_tensor":
+    out, want = F.all_gather_into_tensor(x, 4, gn), torch.arange(8.0).repeat(4) + torch.arange(4.0).repeat_interleave(8)
+elif op == "reduce_scatter_tensor":
+    out, want = F.reduce_scatter_tensor(x, "sum", 4, gn), (4 * torch.arange(8.0) + 6)[2 * int(rank): 2 * int(rank) + 2]
+elif op == "all_reduce":
+    out, want = F.all_reduce(x, "sum", gn), 4 * torch.arange(8.0) + 6
+else:
+    out = F.all_to_all_single(x, [2] * 4, [2] * 4, gn)
+    want = torch.cat([torch.arange(8.0)[2 * int(rank): 2 * int(rank) + 2] + r for r in range(4)])
+out = F.wait_tensor(out)
+assert torch.equal(out.cpu(), want), (out, want)
+dist.destroy_process_group()
+'''
+
+
+def _probe_collectives() -> dict:
+    """Each functional collective on CUDA tensors over its own 4-rank gloo
+    world, as DTensor issues it and routed through the c10d call
+    (``sharding.gloo_cuda``): "ok", or how the ranks ended."""
+    work = MESH_DIR / "probe"
+    work.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    for op in gloo_cuda.ROUTED:
+        for route in ("0", "1"):
+            store = work / f"{op}.{route}.store"
+            store.unlink(missing_ok=True)
+            runs[op, route] = [subprocess.Popen(
+                [sys.executable, "-c", MESH_PROBE, str(r), str(store), op, route,
+                 str(ROOT / "src")], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+                for r in range(MESH_WORLD)]
+    out = {}
+    for (op, route), procs in runs.items():
+        codes = []
+        for p in procs:
+            try:
+                p.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.communicate()
+            codes.append(p.returncode)
+        verdict = ("ok" if codes == [0] * MESH_WORLD else
+                   f"signal {-min(codes)}" if min(codes) < 0 else f"exit codes {codes}")
+        out.setdefault(op, {})["routed" if route == "1" else "functional"] = verdict
+    return out
+
+
+def _mesh_tokens() -> SyntheticTokens:
+    """The run's data: the train phase's loop seed."""
+    return SyntheticTokens(get_config(LM_ARCH).vocab_size, seq_len=MESH_LOOP["seq_len"],
+                           global_batch=MESH_LOOP["global_batch"], seed=0)
+
+
+def _mesh_one_step(cfg, model, opt, mesh, step: int) -> float:
+    """One training step at ``step`` of the run's data on ``mesh``; its loss."""
+    step_fn, _ = make_train_step(cfg, total_steps=MESH_LOOP["total_steps"], device=DEV)
+    with on_mesh(cfg, mesh):
+        _, _, m = step_fn(model, opt, shard_batch(cfg, _mesh_tokens().batch_at(step), mesh, DEV))
+    return float(m["loss"].full_tensor())
+
+
+def _union_ms(spans) -> float:
+    """The length of the union of ``(start, end)`` spans in µs, in ms."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def _mesh_step_profile(cfg, model, opt, mesh) -> dict:
+    """One more step of this rank under torch.profiler: its wall ms, the ms
+    its kernels kept the card busy, and the ms its host spent in collectives
+    (the union of the ``MESH_COLLECTIVE_SPANS`` spans on every thread)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _mesh_one_step(cfg, model, opt, mesh, MESH_LOOP["total_steps"] + 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    kernels = [e.time_range for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    coll = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+            and e.name.startswith(MESH_COLLECTIVE_SPANS)]
+    return {"wall_ms": wall_ms, "kernels": len(kernels),
+            "card_busy_ms": _union_ms((r.start, r.end) for r in kernels),
+            "collective_ms": _union_ms((e.time_range.start, e.time_range.end) for e in coll)}
+
+
+def _mesh_saved(step: int) -> dict:
+    """The checkpoint's arrays by path, read with numpy alone."""
+    src = MESH_DIR / "ckpt" / f"step_{step:09d}"
+    manifest = json.loads((src / "manifest.json").read_text())
+    return {m["path"]: np.load(src / "arrays" / f"{m['idx']}.npy") for m in manifest["leaves"]}
+
+
+def _mesh_bit_equal(state, saved: dict) -> int:
+    """How many leaves of ``state`` (DTensors, gathered) differ from the saved
+    arrays; 0 when every one is bit for bit the saved array."""
+    got = dict(train_ckpt._flatten_with_paths(state))
+    require(set(got) == set(saved), "restored paths != saved paths")
+    bad = 0
+    for path, arr in saved.items():
+        leaf = got[path].full_tensor() if hasattr(got[path], "full_tensor") else got[path]
+        t = leaf.detach().cpu()
+        raw = t.view(torch.int16).numpy().view(np.uint16) if t.dtype == torch.bfloat16 else t.numpy()
+        bad += int(raw.dtype != arr.dtype or not np.array_equal(raw, arr))
+    return bad
+
+
+def _mesh_f32_parity(cfg, mesh) -> dict:
+    """(b) Float32 on the mesh against one process on the card: the loss,
+    every gradient, one AdamW step."""
+    cfg32 = _f32(cfg)
+    b, t = MESH_CHECK
+    api = build_model(cfg32, device=DEV)
+    ref = api.init(torch.Generator(DEV).manual_seed(2))
+    batch = SyntheticTokens(cfg.vocab_size, seq_len=t, global_batch=b, seed=3).batch_at(0)
+    want_loss, want = _grads(api, ref, batch)
+    want = {n: g.cpu() for n, g in want.items()}
+    model = shard_params(cfg32, _copy_model(cfg32, ref, DEV), mesh)
+    with on_mesh(cfg32, mesh):
+        loss, _ = api.loss(model, shard_batch(cfg32, batch, mesh, DEV))
+        loss.backward()
+    got_loss = float(loss.detach().full_tensor())
+    got = {n: p.grad.full_tensor().cpu() for n, p in model.named_parameters()
+           if p.grad is not None}
+    require(set(got) == set(want), "mesh and one process differ in which parameters have grads")
+    loss_err = abs(got_loss - want_loss)
+    require(math.isfinite(got_loss) and loss_err <= TRAIN_LOSS_RTOL * abs(want_loss),
+            f"mesh float32 loss {got_loss} vs one process {want_loss}")
+    grad_ratio, tols = _grad_gaps(got, want)
+    require(grad_ratio <= 1.0, f"mesh float32 gradients: {grad_ratio} x the tolerance")
+    ocfg, oinit, _ = make_optimizer("adamw", total_steps=MESH_LOOP["total_steps"])
+    _, _, om = adamw_update(ocfg, None, adamw_init(ref), ref)
+    opt = reshard_tree(oinit(model), state_shardings(cfg32, oinit, mesh)["opt"])
+    with on_mesh(cfg32, mesh):
+        adamw_update(ocfg, None, opt, model)
+    lr = float(om["lr"])
+    strict_err, loose_err, loose = _adamw_gaps(
+        {n: p.detach().full_tensor().cpu() for n, p in model.named_parameters()},
+        {n: p.detach().cpu() for n, p in ref.named_parameters()}, want, tols, lr)
+    return {"shape": [b, t], "loss_one_process": want_loss, "loss_mesh": got_loss,
+            "loss_abs_err": loss_err, "grad_err_over_tol": grad_ratio, "step_lr": lr,
+            "param_max_abs_err": strict_err, "small_grad_param_max_abs_err": loose_err,
+            "small_grad_params_apart": loose}
+
+
+def _mesh_elastic(cfg) -> dict:
+    """(c) The step-2 checkpoint onto (4, 1) and (1, 4): bit for bit, then
+    one further step on each."""
+    saved_at = train_ckpt.latest_step(MESH_DIR / "ckpt")
+    saved = _mesh_saved(saved_at)
+    oinit = make_optimizer(cfg.optimizer)[1]
+    s1, s2 = MESH_ELASTIC
+    mesh1 = make_compat_mesh(s1, ("data", "model"))
+    mesh2 = make_compat_mesh(s2, ("data", "model"))
+    _, state1 = train_ckpt.restore(MESH_DIR / "ckpt", saved_at,
+                                   shardings=state_shardings(cfg, oinit, mesh1))
+    state2 = reshard_tree(state1, state_shardings(cfg, oinit, mesh2))
+    out = {"from_step": saved_at,
+           "leaves": len(saved),
+           f"{s1}_leaves_differing": _mesh_bit_equal(state1, saved),
+           f"{s2}_leaves_differing": _mesh_bit_equal(state2, saved)}
+    del state1
+    # One further step: on s1 through train(mesh=), which resumes from the
+    # checkpoint by restore(shardings=); on s2 from the re-placed state.
+    hist: list[dict] = []
+    train(cfg, TrainLoopConfig(**{**MESH_LOOP, "total_steps": saved_at + 2},
+                               ckpt_dir=str(MESH_DIR / "ckpt")),
+          mesh=mesh1, device=DEV, log_fn=lambda s, m: hist.append({"step": s, **m}))
+    require([h["step"] for h in hist] == [saved_at + 1], f"{s1} resumed at {hist}")
+    out[f"{s1}_loss"] = hist[0]["loss"]
+    model = shard_params(cfg, model_module(cfg, device=DEV), mesh2)
+    load_reference_tree(model, state2["params"])
+    out[f"{s2}_loss"] = _mesh_one_step(cfg, model, state2["opt"], mesh2, saved_at + 1)
+    out[f"{s2}_local_tokens"] = list(shard_batch(cfg, _mesh_tokens().batch_at(0), mesh2, DEV)
+                                     ["tokens"].to_local().shape)
+    return out
+
+
+def _mesh_archs(mesh) -> dict:
+    """(f) Each of MESH_ARCHS reduced in float32: loss and gradients on the
+    mesh against one process on the card; grad_accum > 1 raises."""
+    b, t = MESH_ARCH_BATCH
+    out = {}
+    for arch, layout in MESH_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), attn_layout=layout)
+        api = build_model(cfg, device=DEV)
+        ref = api.init(torch.Generator(DEV).manual_seed(7))
+        batch = SyntheticTokens(cfg.vocab_size, seq_len=t, global_batch=b, seed=8).batch_at(0)
+        if cfg.embeds_input:
+            batch["enc_embeds" if cfg.is_encoder_decoder else "embeds"] = torch.randn(
+                b, t, cfg.d_model, generator=torch.Generator(DEV).manual_seed(9), device=DEV)
+        want_loss, want = _grads(api, ref, batch)
+        want = {n: g.cpu() for n, g in want.items()}
+        model = shard_params(cfg, _copy_model(cfg, ref, DEV), mesh)
+        with on_mesh(cfg, mesh):
+            loss, _ = api.loss(model, shard_batch(cfg, batch, mesh, DEV))
+            loss.backward()
+        got_loss = float(loss.detach().full_tensor())
+        got = {n: p.grad.full_tensor().cpu() for n, p in model.named_parameters()
+               if p.grad is not None}
+        require(set(got) == set(want), f"{arch}: mesh and one process differ in gradients")
+        ratio, _ = _grad_gaps(got, want)
+        out[f"{arch}/{layout}"] = {"loss_rel_err": abs(got_loss - want_loss) / abs(want_loss),
+                                   "grad_err_over_tol": ratio}
+    try:
+        train(get_config(LM_ARCH).reduced(), TrainLoopConfig(total_steps=1, grad_accum=2),
+              mesh=mesh, device=DEV)
+        out["grad_accum_2"] = "ran"
+    except NotImplementedError as e:
+        out["grad_accum_2"] = str(e)
+    return out
+
+
+def _mesh_rank(rank: int) -> None:
+    """One gloo rank of the mesh phase (the target of
+    ``torch.multiprocessing.spawn``); writes ``rank<r>.json``."""
+    torch.cuda.set_device(DEV)
+    dist.init_process_group("gloo", init_method=f"file://{MESH_DIR / 'gloo.store'}", rank=rank,
+                            world_size=MESH_WORLD, timeout=timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        (MESH_DIR / f"rank{rank}.json").write_text(json.dumps(_mesh_rank_run(rank)))
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_rank_run(rank: int) -> dict:
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    cfg = get_config(LM_ARCH)
+    mesh = make_compat_mesh(MESH_SHAPE, ("data", "model"))
+    reset_launches()
+    out = {"rank": rank, "coord": list(mesh.get_coordinate())}
+    # (a) The run: train(mesh=), a checkpoint at step 2.
+    hist: list[dict] = []
+    torch.cuda.reset_peak_memory_stats()
+    res = train(cfg, TrainLoopConfig(ckpt_dir=str(MESH_DIR / "ckpt"), **MESH_LOOP),
+                mesh=mesh, device=DEV, log_fn=lambda s, m: hist.append({"step": s, **m}))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["losses"] = [h["loss"] for h in hist]
+    out["step_ms"] = [h["step_time_s"] * 1e3 for h in hist]
+    out["grad_norms"] = [h["grad_norm"] for h in hist]
+    model, opt = res["params"], res["opt"]
+    tokens = shard_batch(cfg, _mesh_tokens().batch_at(0), mesh, DEV)["tokens"]
+    embed = model.embeddings.embed
+    out["local_shapes"] = {
+        "embeddings/embed": [list(embed.shape), list(embed.to_local().shape),
+                             [str(p) for p in embed.placements]],
+        "tokens": [list(tokens.shape), list(tokens.to_local().shape),
+                   [str(p) for p in tokens.placements]]}
+    # The collectives of one step (a fifth step, after the run's four).
+    comm = CommDebugMode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with comm:
+        _mesh_one_step(cfg, model, opt, mesh, MESH_LOOP["total_steps"])
+    torch.cuda.synchronize()
+    out["counted_step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["collectives"] = {str(k): v for k, v in comm.get_comm_counts().items()}
+    # Where a step's time goes (a sixth step, profiled on every rank).
+    out["profile"] = _mesh_step_profile(cfg, model, opt, mesh)
+    del model, opt, res, embed, tokens
+    torch.cuda.empty_cache()
+    out["f32_parity"] = _mesh_f32_parity(cfg, mesh)
+    out["elastic"] = _mesh_elastic(cfg)
+    out["archs"] = _mesh_archs(mesh)
+    out["launches"] = launches()
+    return out
+
+
+def _mesh_nccl_one_rank(cfg) -> dict:
+    """(d) The run's first step on a 1-rank NCCL world with a (1, 1) mesh."""
+    dist.init_process_group("nccl", init_method=f"file://{MESH_DIR / 'nccl.store'}",
+                            rank=0, world_size=1, timeout=timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh = make_compat_mesh((1, 1), ("data", "model"))
+        hist: list[dict] = []
+        train(cfg, TrainLoopConfig(**{**MESH_LOOP, "total_steps": 1}), mesh=mesh, device=DEV,
+              log_fn=lambda s, m: hist.append(m))
+    finally:
+        dist.destroy_process_group()
+    return {"loss": hist[0]["loss"], "step_ms": hist[0]["step_time_s"] * 1e3}
+
+
+def phase_mesh() -> dict:
+    """The LM sharded on a device mesh (see the module docstring, phase 17)."""
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    require(cfg.remat and cfg.optimizer == "adamw" and cfg.compute_dtype == "bfloat16"
+            and cfg.param_dtype == "float32", f"{cfg.name}: not the published training setup")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    reset_launches()
+
+    probe = _probe_collectives()
+    probe_line = {"phase": "mesh", "what": "probe", "world": MESH_WORLD, "backend": "gloo",
+                  "tensors": DEV.type, "collectives": probe,
+                  "routed_through_c10d": list(gloo_cuda.ROUTED)}
+    emit(probe_line)
+    require(all(v["routed"] == "ok" for v in probe.values()),
+            f"a routed collective fails over gloo: {probe}")
+
+    # One process on the card: the run's losses, then the resume below.
+    hist: list[dict] = []
+    train(cfg, TrainLoopConfig(**MESH_LOOP), device=DEV,
+          log_fn=lambda s, m: hist.append({"step": s, **m}))
+    want = [h["loss"] for h in hist]
+    torch.cuda.empty_cache()  # the ranks share the card
+
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(_mesh_rank, nprocs=MESH_WORLD, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((MESH_DIR / f"rank{r}.json").read_text()) for r in range(MESH_WORLD)]
+
+    # (a) The run: its line first, then its checks.
+    got = ranks[0]["losses"]
+    loss_rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    step_ms = [r["step_ms"][1:] for r in ranks]
+    med = float(np.median(step_ms[0]))
+    tokens = MESH_LOOP["global_batch"] * MESH_LOOP["seq_len"]
+    shapes = ranks[0]["local_shapes"]
+    b, t = MESH_LOOP["global_batch"], MESH_LOOP["seq_len"]
+    profiles = [r["profile"] for r in ranks]
+    run = {"arch": cfg.name, "mesh": list(MESH_SHAPE), "axes": ["data", "model"],
+           "loop": MESH_LOOP, "losses": got, "losses_one_process": want,
+           "loss_rel_err": loss_rel, "loss_rtol": MESH_LOSS_RTOL,
+           "first_step_ms": ranks[0]["step_ms"][0],
+           "step_ms": step_ms[0], "median_step_ms": med, "tokens_per_s": tokens / (med / 1e3),
+           "one_process_median_step_ms": float(np.median([h["step_time_s"] * 1e3
+                                                           for h in hist[1:]])),
+           "peak_gb_per_rank": [r["peak_gb"] for r in ranks],
+           "collectives_of_one_step": ranks[0]["collectives"],
+           "counted_step_ms": ranks[0]["counted_step_ms"],
+           "profiled_step": {
+               "per_rank": profiles,
+               "card_busy_ms_all_ranks": sum(p["card_busy_ms"] for p in profiles),
+               "collective_share_per_rank": [p["collective_ms"] / p["wall_ms"]
+                                             for p in profiles]},
+           "local_shapes": {"rank0": shapes, "coords": [r["coord"] for r in ranks]},
+           "spawn_s": spawn_s}
+    emit({"phase": "mesh", "what": "run", **run})
+    for r in ranks:
+        require(r["losses"] == got, f"rank {r['rank']}: losses differ from rank 0")
+        require(r["launches"] == {k: 0 for k in r["launches"]},
+                f"rank {r['rank']} launched a kernel of csrc: {r['launches']}")
+    require(len(got) == len(want) and all(map(math.isfinite, got)), f"mesh losses {got}")
+    require(max(loss_rel) <= MESH_LOSS_RTOL,
+            f"mesh losses {got} vs one process {want}: {max(loss_rel)} > {MESH_LOSS_RTOL}")
+    require(shapes["tokens"][1] == [b // MESH_SHAPE[0], t // MESH_SHAPE[1]],
+            f"local batch {shapes['tokens']}")
+    require(shapes["embeddings/embed"][1] == [cfg.padded_vocab // MESH_SHAPE[1], cfg.d_model],
+            f"local embedding {shapes['embeddings/embed']}")
+
+    # (b) Float32 parity (checked in every rank).
+    emit({"phase": "mesh", "what": "f32_parity", **ranks[0]["f32_parity"]})
+
+    # (c) Elastic re-meshing: the ranks' two meshes, then one process.
+    el = ranks[0]["elastic"]
+    for r in ranks:
+        require(r["elastic"] == el, f"rank {r['rank']}: elastic results differ from rank 0")
+    s1, s2 = (str(s) for s in MESH_ELASTIC)
+    require(el[f"{s1}_leaves_differing"] == 0 and el[f"{s2}_leaves_differing"] == 0,
+            f"re-meshed checkpoint differs: {el}")
+    step_loss = got[el["from_step"] + 1]
+    saved = _mesh_saved(el["from_step"])
+    _, back = train_ckpt.restore(MESH_DIR / "ckpt", el["from_step"], device=DEV)
+    el["one_process_leaves_differing"] = _mesh_bit_equal(back, saved)
+    del back, saved
+    rhist: list[dict] = []
+    train(cfg, TrainLoopConfig(**{**MESH_LOOP, "total_steps": el["from_step"] + 2},
+                               ckpt_dir=str(MESH_DIR / "ckpt")),
+          device=DEV, log_fn=lambda s, m: rhist.append({"step": s, **m}))
+    el["one_process_loss"] = rhist[0]["loss"]
+    el["mesh_loss_at_step"] = step_loss
+    for k in (f"{s1}_loss", f"{s2}_loss", "one_process_loss"):
+        require(abs(el[k] - step_loss) <= MESH_LOSS_RTOL * abs(step_loss),
+                f"elastic {k} {el[k]} vs the run's {step_loss}")
+    require(el["one_process_leaves_differing"] == 0, "one-process restore differs from saved")
+    emit({"phase": "mesh", "what": "elastic", **el})
+    torch.cuda.empty_cache()
+
+    # (f) The other archs.
+    archs = ranks[0]["archs"]
+    require("row B1" in archs.pop("grad_accum_2"), "grad_accum > 1 ran on a mesh")
+    for name, res in archs.items():
+        require(res["loss_rel_err"] <= TRAIN_LOSS_RTOL and res["grad_err_over_tol"] <= 1.0,
+                f"{name} on the mesh against one process: {res}")
+    emit({"phase": "mesh", "what": "archs", "shape": list(MESH_ARCH_BATCH), **archs})
+
+    # (d) A 1-rank NCCL world.
+    nccl = _mesh_nccl_one_rank(cfg)
+    require(abs(nccl["loss"] - want[0]) <= MESH_LOSS_RTOL * abs(want[0]),
+            f"NCCL (1, 1) loss {nccl['loss']} vs one process {want[0]}")
+    emit({"phase": "mesh", "what": "nccl_one_rank", "mesh": [1, 1], **nccl})
+
+    # (e) No kernel of csrc on this path.
+    runs = launches()
+    require(runs == {k: 0 for k in runs}, f"the mesh phase launched a kernel of csrc: {runs}")
+    out = {"launches": runs, "rank_launches": [r["launches"] for r in ranks],
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "mesh", **out})
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return {**run, **out}
+
+
 def _drop_tensors(*results: dict) -> None:
     """Free the tensors the phases' results hold; keep their numbers."""
     def holds_tensor(v):
@@ -2937,7 +3460,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    alone = {"lm": phase_lm, "train": phase_train}
+    alone = {"lm": phase_lm, "train": phase_train, "mesh": phase_mesh}
     if len(sys.argv) == 2 and sys.argv[1] in alone:   # an LM phase alone
         timed("device", phase_device)
         timed(sys.argv[1], alone[sys.argv[1]])
@@ -2980,6 +3503,7 @@ def main() -> int:
     sharded = timed("distributed", phase_distributed, shapes)["sharded_launches_per_rank"]
     timed("lm", phase_lm)
     timed("train", phase_train)
+    timed("mesh", phase_mesh)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
     runs = {name: main_run[f"{path}_launches"][name] for path, name in (
         ("features", "glcm_fused"), ("texture", "glcm_window"))}

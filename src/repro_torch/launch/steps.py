@@ -1,6 +1,7 @@
-"""Train-step factories; the port's counterpart of ``repro.launch.steps``, with only
-``make_train_step`` so far (``build_cell``, ``lower_cell`` and
-``abstract_params`` wait for ROADMAP Queue 1 item C).
+"""Train-step factories; the port's counterpart of ``repro.launch.steps``, with
+``make_train_step`` and the cells' logical-axis rules (``_cell_rules``) so
+far (``build_cell``, ``lower_cell`` and ``abstract_params`` wait for ROADMAP
+Queue 1 item C).
 
 ``train_step(params, opt_state, batch)`` differentiates ``api.loss`` with
 ``torch.autograd`` and updates the parameters and the optimizer state in
@@ -18,9 +19,21 @@ import numpy as np
 import torch
 
 from repro_torch.models import build_model
+from repro_torch.sharding.logical import default_rules
 from repro_torch.train.optimizer import make_optimizer
 
 __all__ = ["make_train_step", "micro_grads"]
+
+
+def _cell_rules(cfg, mesh) -> dict:
+    """The logical-axis rules of ``cfg`` on ``mesh``: ``default_rules``, with
+    the heads_tp layout's flip (sequence unsharded, heads over "model")."""
+    rules = default_rules(mesh)
+    if cfg.attn_layout == "heads_tp":
+        rules["seq"] = None
+        rules["kv_seq"] = None
+        rules["heads"] = "model"
+    return rules
 
 
 def micro_grads(api, params, batch: dict, accum: int):

@@ -5,8 +5,8 @@
 
 ``--reduced`` (the default) runs the CPU-scale smoke config; ``--full`` the
 published config. The model trains from a seeded init on synthetic tokens
-(``data.tokens.SyntheticTokens``), single-process: a mesh waits for ROADMAP
-Queue 1 item B.
+(``data.tokens.SyntheticTokens``) on one process; ``train.loop.train(...,
+mesh=)`` is the sharded entry, called by every rank of a mesh.
 """
 
 from __future__ import annotations

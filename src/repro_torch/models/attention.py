@@ -17,6 +17,10 @@ differ):
 ``sdpa_direct``   — unchunked masked attention for decode (T == 1..few):
     scores are (B, KV, G, T, S).
 
+On a mesh (DTensor inputs, ``train.loop.train(mesh=)``) both paths run on
+each rank's local shards (``_on_local_shards``): the online softmax's loop
+holds no DTensor operator.
+
 Masking is position-based: q_pos/k_pos are global token positions, so causal,
 sliding-window (per-layer window), cache-validity and padding masks are all
 the same predicate. k_pos < 0 marks invalid slots.
@@ -29,14 +33,16 @@ the chunked loop keeps its running max, sum and accumulator in float32.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
-from repro_torch.models.common import dense_init_, dtype_of, remat_call
+from repro_torch.models.common import dense_init_, dtype_of, remat_call, weight_einsum
 from repro_torch.models.layers import apply_rope
-from repro_torch.sharding.logical import constrain
+from repro_torch.sharding.logical import constrain, restored
 
 NEG_INF = -1e30
 
@@ -58,22 +64,22 @@ class Attention(nn.Module):
 
 
 def project_q(cfg, p: Attention, x: torch.Tensor, positions) -> torch.Tensor:
-    q = torch.einsum("btd,dhk->bthk", x, p.wq.to(x.dtype))
+    q = weight_einsum("btd,dhk->bthk", x, p.wq.to(x.dtype))
     if cfg.use_rope and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
     return q
 
 
 def project_kv(cfg, p: Attention, x: torch.Tensor, positions):
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(x.dtype))
+    k = weight_einsum("bsd,dhk->bshk", x, p.wk.to(x.dtype))
+    v = weight_einsum("bsd,dhk->bshk", x, p.wv.to(x.dtype))
     if cfg.use_rope and positions is not None:
         k = apply_rope(k, positions, cfg.rope_theta)
     return k, v
 
 
 def output_proj(p: Attention, y: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bthk,hkd->btd", y, p.wo.to(y.dtype))
+    return weight_einsum("bthk,hkd->btd", y, p.wo.to(y.dtype))
 
 
 def _mask(q_pos, k_pos, *, causal: bool, window) -> torch.Tensor:
@@ -94,6 +100,52 @@ def _split_heads(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
     return q.reshape(b, t, kv_heads, h // kv_heads, d)
 
 
+def _local_positions(pos, placements, mesh) -> torch.Tensor:
+    """This rank's block of a global (B, T) position tensor, for a tensor
+    whose dims 0 and 1 are that tensor's batch and sequence."""
+    if isinstance(pos, DTensor):
+        pos = pos.full_tensor()
+    pl = [p if p.is_shard() and p.dim < 2 else Replicate() for p in placements]
+    return distribute_tensor(pos, mesh, pl, src_data_rank=None).to_local()
+
+
+def _on_local_shards(sdpa):
+    """On a mesh (``q`` a DTensor), run an SDPA path on each rank's shards.
+
+    q goes to ("batch", "seq", "heads", None) and k / v to ("batch", None,
+    "heads", None) by the active rules: the K/V sequence gathered (the
+    context layout) or heads split (heads_tp); q and k keep their heads
+    sharded on the same mesh dims or on none, so each rank's GQA groups
+    stay whole. Each rank then attends its queries to its keys with plain
+    tensors (the rules suspended), and the result takes q's placements.
+    The masked online softmax runs locally, so no DTensor operator sits in
+    the chunk loop. K and V's gradients are summed over the ranks that
+    hold other queries (``Partial`` where q is sharded and k is not)."""
+    @functools.wraps(sdpa)
+    def wrapped(q, k, v, q_pos, k_pos, **kw):
+        if not isinstance(q, DTensor):
+            return sdpa(q, k, v, q_pos, k_pos, **kw)
+        q = constrain(q, "batch", "seq", "heads", None)
+        k = constrain(k, "batch", None, "heads", None)
+        v = constrain(v, "batch", None, "heads", None)
+        mesh = q.device_mesh
+        qp, kp = list(q.placements), list(k.placements)
+        for m in range(mesh.ndim):
+            if (qp[m] == Shard(2)) != (kp[m] == Shard(2)):
+                qp[m] = Replicate() if qp[m] == Shard(2) else qp[m]
+                kp[m] = Replicate() if kp[m] == Shard(2) else kp[m]
+        q, k, v = q.redistribute(mesh, qp), k.redistribute(mesh, kp), v.redistribute(mesh, kp)
+        gkv = [b if b.is_shard() else Partial() if a.is_shard() else Replicate()
+               for a, b in zip(qp, kp)]
+        with restored(None):
+            y = sdpa(q.to_local(), k.to_local(grad_placements=gkv),
+                     v.to_local(grad_placements=gkv), _local_positions(q_pos, qp, mesh),
+                     _local_positions(k_pos, kp, mesh), **kw)
+        return DTensor.from_local(y, mesh, qp, run_check=False)
+    return wrapped
+
+
+@_on_local_shards
 def sdpa_direct(q, k, v, q_pos, k_pos, *, causal: bool = True, window=None) -> torch.Tensor:
     """q: (B,T,H,D), k/v: (B,S,KV,D), *_pos: (B,T)/(B,S) → (B,T,H,D)."""
     b, t, h, d = q.shape
@@ -124,6 +176,7 @@ def _chunk_body(qg, kb, vb, q_pos, pb, m, l, acc, *, scale: float, causal: bool,
     return m_new, l, acc
 
 
+@_on_local_shards
 def sdpa_chunked(q, k, v, q_pos, k_pos, *, causal: bool = True, window=None,
                  chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention over KV chunks (flash pattern, tensor ops)."""

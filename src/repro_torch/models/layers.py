@@ -15,8 +15,15 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.common import dense_init_, dtype_of, embed_init_
+from repro_torch.models.common import (
+    dense_init_,
+    dtype_of,
+    embed_init_,
+    weight_einsum,
+    weight_local,
+)
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -80,14 +87,21 @@ def embed_tokens(cfg, p: Embeddings, tokens: torch.Tensor, compute_dtype) -> tor
     # jnp.take, which clamps an out-of-range id silently, this indexing
     # raises on the CPU (and faults on the card): callers keep the contract
     # (``Engine.generate`` checks its prompts on the host).
+    # On a mesh each rank looks its own tokens up in the whole table:
+    # DTensor's lookup over a vocab-sharded table (a masked partial sum)
+    # sizes its mask wrongly when the table is also sharded over the
+    # tokens' batch axis, and torch 2.11 reuses one mask across calls.
+    if isinstance(tokens, DTensor):
+        return weight_local(lambda t, w: F.embedding(t.long(), w), tokens, p.embed,
+                            tokens.placements).to(compute_dtype)
     return F.embedding(tokens.long(), p.embed).to(compute_dtype)
 
 
 def unembed(cfg, p: Embeddings, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        logits = torch.einsum("...d,vd->...v", x, p.embed.to(x.dtype))
+        logits = weight_einsum("...d,vd->...v", x, p.embed.to(x.dtype))
     else:
-        logits = torch.einsum("...d,dv->...v", x, p.unembed.to(x.dtype))
+        logits = weight_einsum("...d,dv->...v", x, p.unembed.to(x.dtype))
     # Mask padded vocab rows so they can never win / leak probability mass.
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab_size
@@ -152,10 +166,10 @@ class MLP(nn.Module):
 def apply_mlp(cfg, p: MLP, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     if cfg.activation == "swiglu":
-        gate = torch.einsum("...d,df->...f", x, p.w_gate.to(dt))
-        up = torch.einsum("...d,df->...f", x, p.w_up.to(dt))
-        return torch.einsum("...f,fd->...d", F.silu(gate) * up, p.w_down.to(dt))
+        gate = weight_einsum("...d,df->...f", x, p.w_gate.to(dt))
+        up = weight_einsum("...d,df->...f", x, p.w_up.to(dt))
+        return weight_einsum("...f,fd->...d", F.silu(gate) * up, p.w_down.to(dt))
     # GELU: jax.nn.gelu defaults to the tanh approximation; F.gelu defaults
     # to erf, so the approximation is named here (whisper is the only user).
-    h = F.gelu(torch.einsum("...d,df->...f", x, p.w_in.to(dt)), approximate="tanh")
-    return torch.einsum("...f,fd->...d", h, p.w_out.to(dt))
+    h = F.gelu(weight_einsum("...d,df->...f", x, p.w_in.to(dt)), approximate="tanh")
+    return weight_einsum("...f,fd->...d", h, p.w_out.to(dt))

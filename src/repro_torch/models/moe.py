@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.ops import onehot_count
-from repro_torch.models.common import dense_init_, dtype_of
+from repro_torch.models.common import dense_init_, dtype_of, on_batch_shards, weight_einsum
 from repro_torch.models.layers import MLP, apply_mlp
 
 NEG_INF = -1e9
@@ -71,7 +71,7 @@ def route(cfg, p: MoE, x: torch.Tensor):
 
     Load statistics use the paper's conflict-free counting primitive.
     """
-    logits = torch.einsum("btd,de->bte", x.float(), p.router)
+    logits = weight_einsum("btd,de->bte", x.float(), p.router)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, ids = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
     gates = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
@@ -102,6 +102,14 @@ def _experts_mlp(cfg, p: MoE, xe: torch.Tensor) -> torch.Tensor:
     return torch.einsum("becf,efd->becd", F.silu(gate) * up, p.w_down.to(dt))
 
 
+# On a mesh the layer runs on each rank's batch shard with the whole
+# sequence (routing and capacity are per batch row over its sequence) and
+# every expert's whole weights; the aux loss comes back Partial over the
+# batch shards. The experts are stored sharded by their specs and gathered
+# for the layer, as FSDP does: DTensor refuses the layer's own operators
+# (arctic's ``aten.index_put_``, the backward of mixtral's dispatch
+# ``aten.view``).
+@on_batch_shards
 def apply_moe(cfg, p: MoE, x: torch.Tensor):
     """x (B,T,D) → (y (B,T,D), aux_loss). Capacity-dropped tokens pass
     through the residual (and arctic's dense branch) only."""

@@ -21,8 +21,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.common import dense_init_, dtype_of
+from repro_torch.models.common import dense_init_, dtype_of, on_batch_shards, weight_einsum
 from repro_torch.sharding.logical import constrain
 
 NEG_INF = -1e30
@@ -182,9 +183,22 @@ def _gated_rmsnorm(y, z, scale, dtype):
 
 def apply_mamba(cfg, p: Mamba, u: torch.Tensor, *, initial_state=None, return_state=False):
     """u: (B, T, d_model) → (B, T, d_model) [, final ssd state]."""
+    if isinstance(u, DTensor) and initial_state is not None:
+        raise NotImplementedError("a mixer's initial state on a mesh: sharded prefill "
+                                  "and decode are ROADMAP Queue 1, row B3")
+    return _mixer(cfg, p, u, initial_state=initial_state, return_state=return_state)
+
+
+# On a mesh the mixer runs on each rank's batch shard with the whole
+# sequence and the whole weights; the result and the final state keep the
+# batch sharding. The causal conv and the chunked scan run along the
+# sequence, and torch 2.11's DTensor cannot pad a sharded sequence
+# (``aten.constant_pad_nd``).
+@on_batch_shards
+def _mixer(cfg, p: Mamba, u: torch.Tensor, *, initial_state=None, return_state=False):
     bsz, t, _ = u.shape
     d_in, h, n, conv_ch = _dims(cfg)
-    proj = torch.einsum("btd,de->bte", u, p.in_proj.to(u.dtype))
+    proj = weight_einsum("btd,de->bte", u, p.in_proj.to(u.dtype))
     z, xc, bm, cm, dt_raw = _split_in(cfg, proj)
 
     xbc = _causal_conv(torch.cat([xc, bm, cm], dim=-1), p.conv_w.to(u.dtype),
@@ -213,7 +227,7 @@ def apply_mamba(cfg, p: Mamba, u: torch.Tensor, *, initial_state=None, return_st
     y = y + x * p.D[None, None, :, None].to(x.dtype)
     y = y.reshape(bsz, t, d_in)
     y = _gated_rmsnorm(y, z, p.gate_norm, u.dtype)
-    out = torch.einsum("bte,ed->btd", y, p.out_proj.to(u.dtype))
+    out = weight_einsum("bte,ed->btd", y, p.out_proj.to(u.dtype))
     if return_state:
         return out, final_state
     return out

@@ -64,11 +64,15 @@ FULL_WINDOW = 0  # sentinel: window<=0 disables the sliding-window mask
 
 
 def shard_friendly_xent(lg: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy. The reference extracts the gold logit with an
-    iota-compare-select sum (so it partitions over a vocab-sharded tensor);
-    a gather selects the same single value per row."""
+    """Mean cross-entropy whose gold-logit extraction partitions over a
+    vocab-sharded logits tensor: an iota-compare-select sum, as the
+    reference's. A gather along the sharded vocab dim would replicate the
+    full float32 logits on every rank; the select keeps the vocab sharded
+    and sums to a small all-reduce. Off a mesh it equals the gather bit for
+    bit: each row sums one logit and zeros."""
     logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, targets[..., None].long())[..., 0]
+    iota = torch.arange(lg.shape[-1], device=lg.device)
+    gold = torch.where(iota == targets[..., None], lg, 0.0).sum(dim=-1)
     return (logz - gold).mean()
 
 

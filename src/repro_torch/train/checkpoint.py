@@ -14,19 +14,30 @@ A tree is nested dicts / lists / tuples of tensors (or numpy arrays).
 ``save`` writes each leaf as numpy on the host; a bfloat16 leaf is stored as
 its uint16 bits with ``"bfloat16"`` in the manifest, which is how
 ``models.convert`` reads bfloat16. ``restore`` places the leaves on an
-explicit ``device`` (default: the card) as tensors.
+explicit ``device`` (default: the card) as tensors, or, given
+``shardings=`` (a tree of ``sharding.partition.NamedSharding``), each leaf
+by its sharding as a DTensor: every rank reads the same file and keeps its
+own slice, so nothing is scattered, and a checkpoint written on one mesh
+restores onto any other (elastic re-meshing).
+
+DTensor leaves (``train(..., mesh=)``): every rank of the mesh calls
+``save`` with the same tree; each leaf is gathered (``full_tensor()``) in
+the calling thread, in the same order on every rank; only the mesh's rank 0
+writes and commits, and every rank then waits on a barrier, so no rank goes
+on before the COMMIT marker is written. The layout on disk is the same.
 
 Fault-tolerance contract (``train.fault_tolerance`` builds on this): writes
 go to a temp dir, then ``os.replace`` (atomic on POSIX); ``latest_step``
 scans COMMIT markers only; ``restore`` validates the manifest against a
-target tree. ``shardings=`` (placement onto a device mesh) waits for the
-port's mesh slice (ROADMAP Queue 1 item B) and raises until then.
+target tree.
 
 ``AsyncCheckpointer`` overlaps serialization with the next train steps (one
 write in flight; ``save`` joins the previous one). Its ``save`` copies every
 tensor to host memory before it returns: the port's optimizer updates
 parameters in place, so a copy deferred to the writer thread, or issued
-``non_blocking`` without a sync, would save a half-updated step.
+``non_blocking`` without a sync, would save a half-updated step. With
+DTensor leaves its barrier waits in ``wait`` (the next ``save`` or the end
+of the loop), after rank 0's writer has committed.
 """
 
 from __future__ import annotations
@@ -40,8 +51,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.plan import resolve_device
+from repro_torch.sharding.partition import distribute
 
 __all__ = ["save", "restore", "latest_step", "AsyncCheckpointer"]
 
@@ -80,6 +94,8 @@ class _HostLeaf:
     name the manifest records."""
 
     def __init__(self, leaf):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()   # a collective: every rank, in the same order
         if torch.is_tensor(leaf):
             t = leaf.detach().to("cpu", copy=True)
             if t.dtype == torch.bfloat16:
@@ -100,6 +116,19 @@ def _host_tree(tree):
     if isinstance(tree, (list, tuple)):
         return [_host_tree(v) for v in tree]
     return _HostLeaf(tree)
+
+
+def _mesh_of(tree):
+    """The mesh of the tree's first DTensor leaf, or None."""
+    for _, leaf in _flatten_with_paths(tree):
+        if isinstance(leaf, DTensor):
+            return leaf.device_mesh
+    return None
+
+
+def _writes(mesh) -> bool:
+    """Whether this process writes: always off a mesh, else the mesh's rank 0."""
+    return mesh is None or dist.get_rank() == int(mesh.mesh.flatten()[0])
 
 
 def _write(directory: Path, step: int, host_tree, extra: dict | None) -> Path:
@@ -127,8 +156,18 @@ def _write(directory: Path, step: int, host_tree, extra: dict | None) -> Path:
 
 def save(directory: str | os.PathLike, step: int, tree: Any,
          extra: dict | None = None) -> Path:
-    """Write a step-atomic checkpoint. Blocks until durable."""
-    return _write(Path(directory), step, _host_tree(tree), extra)
+    """Write a step-atomic checkpoint. Blocks until durable (on a mesh: until
+    rank 0 has committed, on every rank)."""
+    directory = Path(directory)
+    mesh = _mesh_of(tree)
+    host_tree = _host_tree(tree)
+    try:
+        if _writes(mesh):
+            _write(directory, step, host_tree, extra)
+    finally:
+        if mesh is not None:
+            dist.barrier()
+    return directory / f"step_{step:09d}"
 
 
 def latest_step(directory: str | os.PathLike) -> int | None:
@@ -151,12 +190,10 @@ def restore(directory: str | os.PathLike, step: int | None = None,
             device=None) -> tuple[int, Any]:
     """Load a checkpoint → ``(step, tree of tensors on device)``.
     ``device=None`` is the card (raises without one). ``target``: optional
-    tree to validate structure and shapes against."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) places leaves on a device mesh: the port's mesh "
-            "slice (ROADMAP Queue 1 item B) is not ported yet")
-    dev = resolve_device(device)
+    tree to validate structure and shapes against. ``shardings``: a tree of
+    ``NamedSharding`` with the checkpoint's structure; each leaf is then a
+    DTensor on its sharding's mesh (and device type), ``device`` unused."""
+    dev = resolve_device(device) if shardings is None else None
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -165,10 +202,16 @@ def restore(directory: str | os.PathLike, step: int | None = None,
     src = directory / f"step_{step:09d}"
     manifest = json.loads((src / "manifest.json").read_text())
 
+    s_paths = dict(_flatten_with_paths(shardings)) if shardings is not None else None
     leaves = {}
     for meta in manifest["leaves"]:
         arr = np.load(src / "arrays" / f"{meta['idx']}.npy")
-        leaves[meta["path"]] = _tensor(arr, meta["dtype"], dev)
+        if s_paths is None:
+            leaves[meta["path"]] = _tensor(arr, meta["dtype"], dev)
+        else:
+            sh = s_paths[meta["path"]]
+            leaves[meta["path"]] = distribute(
+                _tensor(arr, meta["dtype"], torch.device(sh.mesh.device_type)), sh)
     tree = _rebuild(manifest["structure"], leaves)
 
     if target is not None:
@@ -192,6 +235,7 @@ class AsyncCheckpointer:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
+        self._barrier = False   # a mesh save whose barrier ``wait`` still owes
 
     def save(self, step: int, tree: Any, extra: dict | None = None) -> None:
         self.wait()  # join the previous write (double buffer of depth 1)
@@ -199,7 +243,11 @@ class AsyncCheckpointer:
         # updates the parameters and the optimizer state in place. A
         # device-to-host ``.to("cpu")`` waits for the card's pending work;
         # a CPU tensor is cloned.
+        mesh = _mesh_of(tree)
         host_tree = _host_tree(tree)
+        self._barrier = mesh is not None
+        if not _writes(mesh):
+            return
 
         def _run():
             try:
@@ -215,6 +263,9 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:   # every rank of the mesh, after rank 0's commit
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

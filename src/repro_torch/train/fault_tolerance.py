@@ -13,8 +13,9 @@
 3. **Preemption-safe shutdown** — SIGTERM/SIGINT flips a flag checked each
    step: finish the step, checkpoint synchronously, exit cleanly.
 
-Elastic re-meshing (the reference's ``reshard_tree``) waits for the port's
-mesh slice (ROADMAP Queue 1 item B).
+4. **Elastic re-meshing** — ``reshard_tree`` places a global tree (a
+   restored checkpoint, or DTensors of another mesh) onto a new mesh's
+   shardings; ``resume_or_init(shardings=)`` restores straight onto them.
 """
 
 from __future__ import annotations
@@ -26,20 +27,44 @@ from collections.abc import Callable
 from typing import Any
 
 import numpy as np
+import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.sharding.partition import distribute
 from repro_torch.train import checkpoint as ckpt
 
-__all__ = ["resume_or_init", "StepWatchdog", "GracefulShutdown", "DeterministicSkipSampler"]
+__all__ = ["resume_or_init", "reshard_tree", "StepWatchdog", "GracefulShutdown",
+           "DeterministicSkipSampler"]
 
 
 def resume_or_init(directory, init_fn: Callable[[], Any], shardings: Any = None, *,
                    device=None) -> tuple[int, Any]:
     """(start_step, state). Restores the latest committed checkpoint onto
-    ``device`` (default: the card) or calls ``init_fn`` at step 0."""
+    ``device`` (default: the card), or by ``shardings`` onto their mesh,
+    or calls ``init_fn`` at step 0."""
     step = ckpt.latest_step(directory)
     if step is None:
         return 0, init_fn()
     return ckpt.restore(directory, step, shardings=shardings, device=device)
+
+
+def reshard_tree(tree: Any, shardings: Any) -> Any:
+    """Re-place a global tree onto a new mesh's shardings (a tree of
+    ``NamedSharding`` of the same structure). A leaf may be a tensor or an
+    array holding the global value on every rank, or a DTensor of any mesh,
+    which is gathered first (``full_tensor()``, a collective of its own
+    mesh: every rank calls this with the same tree). The new leaves own
+    their memory: the optimizer updates its state in place, so a re-placed
+    tree must share no storage with the tree it came from."""
+    if isinstance(tree, dict):
+        return {k: reshard_tree(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(reshard_tree(v, s) for v, s in zip(tree, shardings, strict=True))
+    if isinstance(tree, DTensor):
+        tree = tree.full_tensor()
+    elif not torch.is_tensor(tree):
+        tree = torch.from_numpy(np.array(tree))
+    return distribute(tree.detach().to(shardings.mesh.device_type, copy=True), shardings)
 
 
 class StepWatchdog:

@@ -1,7 +1,6 @@
 """The training loop: grad accumulation, checkpoint/restart, straggler
 watchdog, graceful preemption. The port's counterpart of
-``repro.train.loop``, single-process: ``train(..., mesh=)`` waits for the
-port's mesh slice (ROADMAP Queue 1 item B).
+``repro.train.loop``, on one process or sharded on a device mesh.
 
 ``train`` runs on ``device`` (default: the card; ``"cpu"`` for the CPU). It
 initializes the model from ``torch.Generator(device).manual_seed(loop.seed)``
@@ -11,25 +10,57 @@ every ``ckpt_every`` steps, and on preemption (SIGTERM/SIGINT) checkpoints
 synchronously and stops. Checkpoints hold ``{"params", "opt"}`` in the
 reference's layout (``models.convert.reference_tree``: stacked layer
 groups), so either package can read the other's.
+
+**On a mesh** (``train(cfg, loop, mesh=mesh)``, a ``DeviceMesh`` with dims
+named as the reference's, e.g. ("data", "model")) the loop is the
+reference's ``build_cell`` train program: the parameters are DTensors placed
+by ``sharding.partition.param_specs``, the optimizer state by
+``optimizer_state_specs`` over the reference's leaf view, each step's
+global ``SyntheticTokens`` batch by ``batch_specs(seq_shard=attn_layout !=
+"heads_tp")`` (each rank keeps its own slice), and the step runs under
+``logical_axis_rules(mesh, _cell_rules(cfg, mesh))`` and
+``implicit_replication()`` (see ``sharding.logical``); the metrics are
+replicated (``full_tensor()``). A resume restores by ``restore(shardings=)``
+onto this mesh, whatever mesh wrote the checkpoint. It is multi-controller,
+as ``core.distributed``: every rank of the mesh calls ``train`` with the
+same arguments, and ``params`` comes back with DTensor parameters whose
+``full_tensor()`` is the global value. ``device`` must be of the mesh's
+device type. ``grad_accum > 1`` raises ``NotImplementedError`` under a
+mesh (ROADMAP Queue 1, row B1).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
+from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.data.tokens import SyntheticTokens
-from repro_torch.launch.steps import make_train_step, micro_grads
+from repro_torch.launch.steps import _cell_rules, make_train_step, micro_grads
 from repro_torch.models import build_model
-from repro_torch.models.convert import load_reference_tree, reference_tree
+from repro_torch.models.convert import flatten_paths, load_reference_tree, reference_tree
 from repro_torch.models.model import model_module
+from repro_torch.sharding.logical import logical_axis_rules
+from repro_torch.sharding.partition import (
+    NamedSharding,
+    batch_specs,
+    distribute,
+    named,
+    optimizer_state_specs,
+    param_specs,
+)
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.train.fault_tolerance import GracefulShutdown, StepWatchdog
+from repro_torch.train.fault_tolerance import GracefulShutdown, StepWatchdog, reshard_tree
 from repro_torch.train.optimizer import make_optimizer
 
-__all__ = ["TrainLoopConfig", "make_accum_train_step", "train"]
+__all__ = ["TrainLoopConfig", "make_accum_train_step", "on_mesh", "shard_batch",
+           "shard_params", "state_shardings", "train"]
 
 
 @dataclasses.dataclass
@@ -69,16 +100,63 @@ def make_accum_train_step(cfg, accum: int, total_steps: int = 100_000, *, device
     return train_step, oinit
 
 
+def shard_params(cfg, model: nn.Module, mesh) -> nn.Module:
+    """Replace ``model``'s parameters, in place, by DTensors placed by
+    ``param_specs`` (each rank keeps its slice of the global value)."""
+    specs = dict(flatten_paths(param_specs(cfg, model)))
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        sharding = NamedSharding(mesh, specs[name.replace(".", "/")])
+        model.get_submodule(owner)._parameters[leaf] = nn.Parameter(
+            distribute(p.detach(), sharding), requires_grad=p.requires_grad)
+    return model
+
+
+def state_shardings(cfg, oinit, mesh) -> dict:
+    """``{"params", "opt"}`` shardings of the checkpointed state in the
+    reference's layout (stacked leaves), as the reference's ``build_cell``
+    places them; shapes come from a ``meta`` model, so nothing is allocated."""
+    meta = model_module(cfg, device="meta")
+    pspecs = param_specs(cfg, reference_tree(meta))
+    return named(mesh, {"params": pspecs,
+                        "opt": optimizer_state_specs(pspecs, oinit(meta))})
+
+
+def shard_batch(cfg, batch: dict, mesh, device) -> dict:
+    """A global batch (numpy or tensors, the same on every rank) placed by
+    ``batch_specs``: this rank's slice of it on ``device``."""
+    specs = batch_specs(cfg, mesh, seq_shard=cfg.attn_layout != "heads_tp")
+    return {k: distribute((v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v)))
+                          .to(device), NamedSharding(mesh, specs[k]))
+            for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def on_mesh(cfg, mesh):
+    """The context a sharded step runs in: the cell's logical-axis rules
+    and implicit replication of the plain tensors the model builds."""
+    with logical_axis_rules(mesh, _cell_rules(cfg, mesh)), implicit_replication():
+        yield
+
+
+def _replicated(v) -> float:
+    return float(v.full_tensor() if isinstance(v, DTensor) else v)
+
+
 def train(cfg, loop: TrainLoopConfig, *, mesh=None,
           log_fn: Callable[[int, dict], None] | None = None, device=None) -> dict:
     """Run the loop; returns ``{"history", "params", "opt", "stragglers"}``
-    (``params`` the model, updated in place). ``device=None`` is the card."""
+    (``params`` the model, updated in place). ``device=None`` is the card.
+    ``mesh``: a ``DeviceMesh`` to shard over (see the module docstring)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "train(mesh=...) shards the model over a device mesh: the port's mesh "
-            "slice (ROADMAP Queue 1 item B) is not ported yet")
+        if loop.grad_accum > 1:
+            raise NotImplementedError(
+                f"{cfg.name} on a mesh with grad_accum > 1: the microbatch split of a "
+                "batch-sharded DTensor is not held to the reference (ROADMAP Queue 1, row B1)")
     api = build_model(cfg, device=device)
     dev = api.device
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh for parameters on {dev}")
 
     # LR schedule scaled to THIS run's length (warmup = ~total/10).
     if loop.grad_accum > 1:
@@ -87,19 +165,28 @@ def train(cfg, loop: TrainLoopConfig, *, mesh=None,
     else:
         step_fn, oinit = make_train_step(cfg, total_steps=loop.total_steps, device=dev)
 
+    shardings = state_shardings(cfg, oinit, mesh) if mesh is not None else None
     start_step = 0
     model = opt = None
     if loop.ckpt_dir:
         last = ckpt.latest_step(loop.ckpt_dir)
         if last is not None:
-            start_step, state = ckpt.restore(loop.ckpt_dir, last, device=dev)
+            start_step, state = ckpt.restore(loop.ckpt_dir, last, shardings=shardings,
+                                             device=dev)
             start_step += 1
-            model = load_reference_tree(model_module(cfg, device=dev), state["params"])
+            model = model_module(cfg, device=dev)
+            if mesh is not None:
+                shard_params(cfg, model, mesh)
+            model = load_reference_tree(model, state["params"])
             opt = state["opt"]
             print(f"[train] resumed from step {last}")
     if model is None:
         model = api.init(torch.Generator(dev).manual_seed(loop.seed))
+        if mesh is not None:
+            shard_params(cfg, model, mesh)
         opt = oinit(model)
+        if mesh is not None:
+            opt = reshard_tree(opt, shardings["opt"])
 
     ds = SyntheticTokens(cfg.vocab_size, seq_len=loop.seq_len,
                          global_batch=loop.global_batch, seed=loop.seed)
@@ -112,8 +199,12 @@ def train(cfg, loop: TrainLoopConfig, *, mesh=None,
         for step in range(start_step, loop.total_steps):
             batch = ds.batch_at(step)
             watchdog.start()
-            model, opt, metrics = step_fn(model, opt, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}   # waits for the step
+            if mesh is None:
+                model, opt, metrics = step_fn(model, opt, batch)
+            else:
+                with on_mesh(cfg, mesh):
+                    model, opt, metrics = step_fn(model, opt, shard_batch(cfg, batch, mesh, dev))
+            metrics = {k: _replicated(v) for k, v in metrics.items()}   # waits for the step
             dt = watchdog.stop(step)
             metrics["step_time_s"] = dt
             if step % loop.log_every == 0 or step == loop.total_steps - 1:

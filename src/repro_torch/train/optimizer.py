@@ -35,6 +35,15 @@ counterpart of the reference's donated buffers, and returns
 Scalars enter the math as float32 tensors on the parameters' device, never
 as python divisors: ``scalar / tensor`` multiplies by a reciprocal in
 PyTorch, and on the card so does ``tensor / scalar``.
+
+**On a mesh** (``train.loop.train(..., mesh=)``) the parameters are DTensors
+and the state is placed by ``sharding.partition.optimizer_state_specs``
+over the same leaf view; the update runs under
+``implicit_replication()``. A gradient comes back ``Partial`` where its
+parameter is replicated over a mesh dim the activations are sharded over;
+:meth:`_Leaf.grad` reduces it once, to its parameter's placements, before
+the norm and the update read it, so the global norm is the norm of the
+summed gradient and never a sum over local shards.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from typing import Any, Callable
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.convert import flatten_paths, is_stacked, nest_paths, reference_groups
 
@@ -95,7 +105,8 @@ class _Leaf:
         return torch.stack(self.params) if self.stacked else self.params[0]
 
     def grad(self) -> torch.Tensor:
-        gs = [torch.zeros_like(p) if g is None else g for g, p in zip(self.grads, self.params)]
+        gs = [torch.zeros_like(p) if g is None else _placed_like(g, p)
+              for g, p in zip(self.grads, self.params)]
         return torch.stack(gs) if self.stacked else gs[0]
 
     @property
@@ -106,6 +117,14 @@ class _Leaf:
     def write(self, new: torch.Tensor) -> None:
         for p, part in zip(self.params, new.unbind(0) if self.stacked else (new,)):
             p.copy_(part)
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient on its parameter's placements (a ``Partial`` one
+    summed over the ranks that hold it)."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _leaves(params: Params, grads=None) -> list[_Leaf]:

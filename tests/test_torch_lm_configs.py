@@ -145,12 +145,29 @@ def test_batch_iterator_prefetches_onto_the_device_in_order():
 
 
 def test_constrain_identity_outside_and_raises_inside_a_mesh_context():
-    x = torch.ones(2, 3)
+    """The identity outside a rules context; inside one (a fake 2-rank world,
+    a (2,) "data" mesh) a plain tensor is taken as replicated and placed by
+    the rules, and a DTensor is redistributed."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_compat_mesh
+
+    x = torch.arange(6.0).reshape(2, 3)
     assert constrain(x, "batch", None) is x and not active()
-    with logical_axis_rules(object(), {"batch": "data"}):
-        assert active()
-        with pytest.raises(NotImplementedError, match="18b"):
-            constrain(x, "batch", None)
+    dist.init_process_group("fake", store=FakeStore(), rank=1, world_size=2)
+    try:
+        mesh = make_compat_mesh((2,), ("data",), device_type="cpu")
+        with logical_axis_rules(mesh, {"batch": "data"}):
+            assert active()
+            y = constrain(x, "batch", None)
+            assert y.placements == (Shard(0),) and torch.equal(y.to_local(), x[1:])
+            assert constrain(y, "batch", None) is y
+            z = constrain(y, None, "batch")   # 3 columns do not divide: replicated
+            assert z.placements == (Replicate(),) and tuple(z.shape) == (2, 3)
+    finally:
+        dist.destroy_process_group()
     assert not active()
 
 

@@ -152,12 +152,42 @@ def test_preemption_checkpoints_synchronously(tmp_path):
 
 
 def test_mesh_and_shardings_wait_for_item_b(tmp_path):
+    """Item B has come: on a one-rank gloo world and a (1, 1) mesh,
+    ``train(mesh=)`` trains as one process, ``restore(shardings=)`` and
+    ``resume_or_init(shardings=)`` place the saved arrays as DTensors;
+    ``grad_accum > 1`` raises, naming its ROADMAP row."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.partition import P, named
+    from repro_torch.train.fault_tolerance import resume_or_init
+
     cfg, _ = _model()
-    with pytest.raises(NotImplementedError, match="item B"):
-        train(cfg, TrainLoopConfig(total_steps=1), mesh=object(), device=CPU)
-    ckpt.save(tmp_path, 1, {"w": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item B"):
-        ckpt.restore(tmp_path, 1, shardings={"w": None}, device=CPU)
+    loop = TrainLoopConfig(total_steps=2, log_every=1, seq_len=16, global_batch=2)
+    want = [h["loss"] for h in train(cfg, loop, device=CPU)["history"]]
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"))
+        out = train(cfg, loop, mesh=mesh, device=CPU)
+        assert [h["loss"] for h in out["history"]] == want
+        assert isinstance(out["params"].embeddings.embed, DTensor)
+        tree = {"w": torch.arange(6.0).reshape(2, 3), "opt": {"step": torch.tensor(3)}}
+        ckpt.save(tmp_path / "ck", 1, tree)
+        sh = named(mesh, {"w": P("data", "model"), "opt": {"step": P()}})
+        for step, back in (ckpt.restore(tmp_path / "ck", 1, shardings=sh),
+                           resume_or_init(tmp_path / "ck", lambda: None, shardings=sh)):
+            assert step == 1 and isinstance(back["w"], DTensor)
+            assert torch.equal(back["w"].full_tensor(), tree["w"])
+            assert int(back["opt"]["step"].full_tensor()) == 3
+        moe = get_config("mixtral-8x7b").reduced()
+        assert ([h["loss"] for h in train(moe, loop, mesh=mesh, device=CPU)["history"]]
+                == [h["loss"] for h in train(moe, loop, device=CPU)["history"]])
+        with pytest.raises(NotImplementedError, match="row B1"):
+            train(cfg, TrainLoopConfig(total_steps=1, grad_accum=2), mesh=mesh, device=CPU)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_train_cli_on_cpu():
