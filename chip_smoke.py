@@ -210,8 +210,30 @@ Phases, each printing one JSON line:
     olmo, whisper in both layouts, mamba2, hymba, internlm2, llava,
     smollm-360m, mixtral, arctic): the loss and every gradient on the mesh
     against one process on the card, and ``train(mesh=)`` with
-    ``grad_accum > 1`` raising with its ROADMAP row. ``python3 chip_smoke.py mesh`` runs the device and
+    ``grad_accum=2`` (reduced smollm) giving one process's loss within
+    ``MESH_LOSS_RTOL``. ``python3 chip_smoke.py mesh`` runs the device and
     ``mesh`` phases alone.
+18. ``dryrun`` (``repro_torch.launch``: ``build_cell``, ``lower_cell``,
+    ``cost``, ``roofline``, ``dryrun``; plain PyTorch, no kernel of
+    ``csrc``). (a) The dry run itself, two children at once:
+    ``python -m repro_torch.launch.dryrun --arch smollm-135m --mesh single``
+    (train_4k, prefill_32k, decode_32k) and ``--arch mixtral-8x7b --shape
+    train_4k`` (grad_accum 4: the batch taken as microbatches), each on a
+    fake world of 256 ranks with fake CUDA tensors (nothing allocated),
+    probes at depths (4, 8); each cell's roofline line from its report
+    under ``reports/dryrun_torch/``. (b) Calibration, in a spawned 1-rank
+    NCCL world on a (1, 1) mesh: smollm-135m as published, seeded, with real
+    weights on the card, for ``CALIB_CELLS`` (train at 8 x 2048, decode at
+    B = 64 against a 4096-slot cache): ``lower_cell`` on fake tensors, then
+    the same program for real under the same counting mode (``launch.cost``):
+    flops, bytes and collective bytes must be equal exactly, and the
+    predicted peak (plus what the process held beyond the arguments) within
+    ``CALIB_PEAK_RTOL`` of ``max_memory_allocated``;
+    then the real program timed without the mode (CUDA events) beside
+    ``t_compute``, ``t_memory`` and its share of bf16 peak
+    (``model_flops / (ms · PEAK_FLOPS)``), with the card's name and power
+    limit. ``python3 chip_smoke.py dryrun`` runs the device and ``dryrun``
+    phases alone.
 
 The store of autotuner winners is ``build/autotune.json``
 (``REPRO_TORCH_AUTOTUNE_PATH``), deleted before any plan is compiled, so
@@ -247,6 +269,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.analysis import audit, op_lint  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.shapes import ShapeCell  # noqa: E402
 from repro_torch.core import autotune  # noqa: E402
 from repro_torch.core import backends as _backends  # noqa: E402
 from repro_torch.core.backends import compute_regions  # noqa: E402
@@ -3006,6 +3029,8 @@ MESH_ARCHS = (("olmo-1b", "context"), ("whisper-medium", "context"),
               ("llava-next-34b", "context"), ("smollm-360m", "context"),
               ("mixtral-8x7b", "context"), ("arctic-480b", "context"))
 MESH_ARCH_BATCH = (4, 64)
+# One step of reduced smollm with grad_accum 2: two microbatches of 8 rows.
+MESH_ACCUM = TrainLoopConfig(total_steps=1, grad_accum=2)
 MESH_TIMEOUT_S = 600
 # Host spans of a profiled step that are collectives: the functional ops
 # DTensor issues (routed through c10d), c10d's own, gloo's.
@@ -3211,7 +3236,7 @@ def _mesh_elastic(cfg) -> dict:
 
 def _mesh_archs(mesh) -> dict:
     """(f) Each of MESH_ARCHS reduced in float32: loss and gradients on the
-    mesh against one process on the card; grad_accum > 1 raises."""
+    mesh against one process on the card; a step with grad_accum 2."""
     b, t = MESH_ARCH_BATCH
     out = {}
     for arch, layout in MESH_ARCHS:
@@ -3235,12 +3260,8 @@ def _mesh_archs(mesh) -> dict:
         ratio, _ = _grad_gaps(got, want)
         out[f"{arch}/{layout}"] = {"loss_rel_err": abs(got_loss - want_loss) / abs(want_loss),
                                    "grad_err_over_tol": ratio}
-    try:
-        train(get_config(LM_ARCH).reduced(), TrainLoopConfig(total_steps=1, grad_accum=2),
-              mesh=mesh, device=DEV)
-        out["grad_accum_2"] = "ran"
-    except NotImplementedError as e:
-        out["grad_accum_2"] = str(e)
+    hist = train(get_config(LM_ARCH).reduced(), MESH_ACCUM, mesh=mesh, device=DEV)["history"]
+    out["grad_accum_2"] = {"loss": hist[0]["loss"]}
     return out
 
 
@@ -3414,11 +3435,17 @@ def phase_mesh() -> dict:
 
     # (f) The other archs.
     archs = ranks[0]["archs"]
-    require("row B1" in archs.pop("grad_accum_2"), "grad_accum > 1 ran on a mesh")
+    accum = archs.pop("grad_accum_2")
+    accum["one_process_loss"] = train(get_config(LM_ARCH).reduced(), MESH_ACCUM,
+                                      device=DEV)["history"][0]["loss"]
+    require(abs(accum["loss"] - accum["one_process_loss"])
+            <= MESH_LOSS_RTOL * abs(accum["one_process_loss"]),
+            f"grad_accum 2 on the mesh against one process: {accum}")
     for name, res in archs.items():
         require(res["loss_rel_err"] <= TRAIN_LOSS_RTOL and res["grad_err_over_tol"] <= 1.0,
                 f"{name} on the mesh against one process: {res}")
-    emit({"phase": "mesh", "what": "archs", "shape": list(MESH_ARCH_BATCH), **archs})
+    emit({"phase": "mesh", "what": "archs", "shape": list(MESH_ARCH_BATCH), **archs,
+          "grad_accum_2": accum})
 
     # (d) A 1-rank NCCL world.
     nccl = _mesh_nccl_one_rank(cfg)
@@ -3434,6 +3461,194 @@ def phase_mesh() -> dict:
     emit({"phase": "mesh", **out})
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     return {**run, **out}
+
+
+# ---------------------------------------------------------------------------
+# 18. dryrun: the dry run on a fake world, and its count held to a real run
+# ---------------------------------------------------------------------------
+
+DRYRUN_RUNS = (("--arch", "smollm-135m", "--mesh", "single"),
+               ("--arch", "mixtral-8x7b", "--shape", "train_4k", "--mesh", "single"))
+DRYRUN_REPORTS = ROOT / "reports" / "dryrun_torch"
+DRYRUN_TIMEOUT_S = 600
+CALIB_ARCH = "smollm-135m"
+CALIB_CELLS = (ShapeCell("calib_train", "train", 2048, 8),
+               ShapeCell("calib_decode", "decode", 4096, 64))
+CALIB_DIR = ROOT / "build" / "calib"
+CALIB_REPS = 3
+# The predicted peak (launch.cost's live storages) against the caching
+# allocator's max_memory_allocated of the same program: the allocator rounds
+# every block up and keeps workspaces (cuBLAS's) the count does not see; the
+# memory the process held beyond the arguments before the run is added to
+# the prediction. The readings this limit was set from (PERF.md §6, PR 23):
+# train -0.18 %, decode -0.00001 %.
+CALIB_PEAK_RTOL = 0.02
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
+def _dryrun_children() -> dict:
+    """(a) The dry run's two commands, run at once, each in its own process
+    (its own fake world); their reports' rows."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    shutil.rmtree(DRYRUN_REPORTS, ignore_errors=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *argv],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for argv in DRYRUN_RUNS]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DRYRUN_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for argv, p, text in zip(DRYRUN_RUNS, procs, outs):
+        if p.returncode != 0:
+            print(text[-6000:], file=sys.stderr, flush=True)
+        require(p.returncode == 0, f"dryrun {' '.join(argv)} exited {p.returncode}")
+    rows = [json.loads(f.read_text()) for f in sorted(DRYRUN_REPORTS.glob("*.json"))]
+    return {"rows": rows, "seconds": seconds,
+            "tables": [t[t.index("=== ROOFLINE TABLE ==="):] for t in outs]}
+
+
+def _calib_values(cfg, cell, api):
+    """Real global arguments for the calibration cell: seeded weights,
+    AdamW's fresh state and a seeded batch, or empty caches and tokens."""
+    model = api.init(torch.Generator(DEV).manual_seed(0))
+    if cell.kind == "train":
+        batch = SyntheticTokens(cfg.vocab_size, seq_len=cell.seq_len,
+                                global_batch=cell.global_batch, seed=0).batch_at(0)
+        return (model, adamw_init(model), {k: torch.as_tensor(v) for k, v in batch.items()})
+    g = torch.Generator().manual_seed(1)
+    caches = api.init_caches(cell.global_batch, cell.seq_len)
+    token = torch.randint(0, cfg.vocab_size, (cell.global_batch, 1), generator=g,
+                          dtype=torch.int32)
+    pos = torch.full((cell.global_batch,), cell.seq_len // 2, dtype=torch.int32)
+    return (model, caches, token, pos)
+
+
+def _calib_rank(rank: int) -> None:
+    """(b) The calibration's 1-rank NCCL world (the target of
+    ``torch.multiprocessing.spawn``); writes ``calib.json``."""
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.cost import measure
+    from repro_torch.launch.steps import build_cell, lower_cell, place_args, run_program
+
+    torch.cuda.set_device(DEV)
+    dist.init_process_group("nccl", init_method=f"file://{CALIB_DIR / 'nccl.store'}", rank=0,
+                            world_size=1, timeout=timedelta(seconds=MESH_TIMEOUT_S))
+    out = {}
+    try:
+        require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh = make_compat_mesh((1, 1), ("data", "model"))
+        cfg = get_config(CALIB_ARCH)
+        api = build_model(cfg, device=DEV)
+        for cell in CALIB_CELLS:
+            prog = build_cell(cfg, cell, mesh)
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            fake = lower_cell(prog, mesh)
+            fake_s = time.perf_counter() - t0
+            require(torch.cuda.memory_allocated() == before, "lower_cell allocated on the card")
+            placed = place_args(prog, _calib_values(cfg, cell, api))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            real = measure(lambda *a: run_program(prog, mesh, a), *placed)[1]   # outputs freed
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+
+            def step():
+                run_program(prog, mesh, placed)
+            ms = cuda_ms(step, CALIB_REPS)
+            del step
+            roof = rl.build_roofline(cfg, cell, "calib1x1", 1, fake)
+            out[cell.name] = {
+                "fake": dataclasses.asdict(fake), "real": dataclasses.asdict(real),
+                "costs_equal": fake.costs() == real.costs(),
+                "lower_s": fake_s, "held_bytes": held,
+                "held_over_arguments": held - real.argument_bytes,
+                "predicted_peak_bytes": fake.peak_bytes, "max_memory_allocated": peak,
+                # What the process held beyond the arguments (the previous
+                # cell's cuBLAS workspace) is live under the program too.
+                "peak_rel_err": (fake.peak_bytes + held - real.argument_bytes - peak) / peak,
+                "ms": ms, "t_compute_ms": roof.t_compute * 1e3,
+                "t_memory_ms": roof.t_memory * 1e3,
+                "t_collective_ms": roof.t_collective * 1e3,
+                "model_flops": roof.model_flops,
+                "share_of_bf16_peak": roof.model_flops / (ms / 1e3 * rl.PEAK_FLOPS),
+                "counted_flops_share": fake.flops / (ms / 1e3 * rl.PEAK_FLOPS)}
+            del placed, prog
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    (CALIB_DIR / "calib.json").write_text(json.dumps(out))
+
+
+def phase_dryrun() -> dict:
+    """The dry run (see the module docstring, phase 18)."""
+    t_phase = time.perf_counter()
+    smi = _smi()
+    reset_launches()
+    shutil.rmtree(CALIB_DIR, ignore_errors=True)
+    CALIB_DIR.mkdir(parents=True)
+    # (b) first, so its timings share the host with nothing else.
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(_calib_rank, nprocs=1, join=True)
+    calib_s = time.perf_counter() - t0
+    calib = json.loads((CALIB_DIR / "calib.json").read_text())
+    dry = _dryrun_children()
+
+    cells = {}
+    for r in dry["rows"]:
+        cells[f"{r['arch']}×{r['shape']}"] = {
+            k: r[k] for k in ("t_compute_s", "t_memory_s", "t_collective_s", "bottleneck",
+                              "useful_ratio", "roofline_fraction", "hlo_flops", "hlo_bytes",
+                              "coll_bytes", "model_flops", "fits_80gb_hbm", "probes", "run_s")}
+        cells[f"{r['arch']}×{r['shape']}"]["peak_gb"] = r["memory"]["per_device_gb"]
+        emit({"phase": "dryrun", "what": "cell", "cell": f"{r['arch']}×{r['shape']}",
+              "mesh": r["mesh"], **cells[f"{r['arch']}×{r['shape']}"]})
+    want = {"smollm-135m×train_4k", "smollm-135m×prefill_32k", "smollm-135m×decode_32k",
+            "mixtral-8x7b×train_4k"}
+    require(set(cells) == want, f"dry-run cells {sorted(cells)}")
+    for name, c in cells.items():
+        require(c["hlo_flops"] > 0 and c["model_flops"] > 0, f"{name}: no flops counted")
+    print("\n".join(dry["tables"]), flush=True)
+    emit({"phase": "dryrun", "what": "dryrun_seconds", "seconds": dry["seconds"]})
+
+    for name, c in calib.items():
+        line = {k: v for k, v in c.items() if k not in ("fake", "real")}
+        line.update({"flops": c["fake"]["flops"], "bytes": c["fake"]["bytes_accessed"],
+                     "coll_bytes": c["fake"]["coll_bytes"],
+                     "real_flops": c["real"]["flops"], "real_bytes": c["real"]["bytes_accessed"],
+                     "real_coll_bytes": c["real"]["coll_bytes"],
+                     "argument_bytes": c["fake"]["argument_bytes"],
+                     "real_argument_bytes": c["real"]["argument_bytes"],
+                     "real_peak_bytes": c["real"]["peak_bytes"]})
+        emit({"phase": "dryrun", "what": "calibration", "cell": name, "arch": CALIB_ARCH,
+              "card": smi, **line})
+        require(c["costs_equal"], f"{name}: fake and real counts differ: {c['fake']} "
+                f"vs {c['real']}")
+        require(abs(c["peak_rel_err"]) <= CALIB_PEAK_RTOL,
+                f"{name}: predicted peak {c['predicted_peak_bytes']} vs measured "
+                f"{c['max_memory_allocated']} ({c['peak_rel_err']:+.3f})")
+    runs = launches()
+    require(runs == {k: 0 for k in runs}, f"the dryrun phase launched a kernel of csrc: {runs}")
+    out = {"card": smi, "calib_seconds": calib_s, "dryrun_seconds": dry["seconds"],
+           "share_of_bf16_peak": {k: c["share_of_bf16_peak"] for k, c in calib.items()},
+           "launches": runs, "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "dryrun", **out})
+    shutil.rmtree(CALIB_DIR, ignore_errors=True)
+    return out
 
 
 def _drop_tensors(*results: dict) -> None:
@@ -3460,7 +3675,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    alone = {"lm": phase_lm, "train": phase_train, "mesh": phase_mesh}
+    alone = {"lm": phase_lm, "train": phase_train, "mesh": phase_mesh, "dryrun": phase_dryrun}
     if len(sys.argv) == 2 and sys.argv[1] in alone:   # an LM phase alone
         timed("device", phase_device)
         timed(sys.argv[1], alone[sys.argv[1]])
@@ -3504,6 +3719,7 @@ def main() -> int:
     timed("lm", phase_lm)
     timed("train", phase_train)
     timed("mesh", phase_mesh)
+    timed("dryrun", phase_dryrun)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
     runs = {name: main_run[f"{path}_launches"][name] for path, name in (
         ("features", "glcm_fused"), ("texture", "glcm_window"))}

@@ -143,15 +143,19 @@ def on_batch_shards(apply):
     """A layer ``apply(cfg, p, x, **kw)`` that, on a mesh (``x`` a DTensor),
     runs on each rank's batch shard with the whole sequence (``x`` constrained
     to ("batch", None, None)) and the whole weights (:func:`whole_module`),
-    the rules suspended. Each output with dims takes ``x``'s placements; a
-    0-dim output, a mean over batch rows, becomes the rank's local mean over
-    the number of batch shards, ``Partial`` over them. Off a mesh it is
-    ``apply``."""
+    the rules suspended (a DTensor keyword argument, such as an initial
+    state, likewise takes its batch rows). Each output with dims takes
+    ``x``'s placements; a 0-dim output, a mean over batch rows, becomes the
+    rank's local mean over the number of batch shards, ``Partial`` over
+    them. Off a mesh it is ``apply``."""
     @functools.wraps(apply)
     def wrapped(cfg, p, x, **kw):
         if not isinstance(x, DTensor):
             return apply(cfg, p, x, **kw)
         x = logical.constrain(x, "batch", None, None)
+        # A DTensor keyword (the mixer's initial state) takes x's batch rows.
+        kw = {k: logical.constrain(v, "batch", *(None,) * (v.ndim - 1)).to_local()
+              if isinstance(v, DTensor) else v for k, v in kw.items()}
         with logical.restored(None):
             out = apply(cfg, whole_module(p, x), x.to_local(), **kw)
         mesh = x.device_mesh

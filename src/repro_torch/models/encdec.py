@@ -38,7 +38,7 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
     unembed,
 )
-from repro_torch.models.transformer import shard_friendly_xent
+from repro_torch.models.transformer import kv_cache, shard_friendly_xent, write_slot
 from repro_torch.sharding.logical import constrain
 
 
@@ -165,12 +165,7 @@ def encdec_prefill(cfg, params: EncDecLM, batch: dict, *, s_cache: int | None = 
         k, v = project_kv(cfg, pi.self_attn, h, None)
         att = sdpa_chunked(q, k, v, dpos, dpos, causal=True, chunk=chunk)
         x = x + output_proj(pi.self_attn, att)
-        kc = torch.zeros((b, sc) + k.shape[2:], dtype=k.dtype, device=k.device)
-        vc = torch.zeros_like(kc)
-        pc = torch.full((b, sc), -1, dtype=torch.int32, device=k.device)
-        kc[:, :td] = k
-        vc[:, :td] = v
-        pc[:, :td] = dpos
+        cache = kv_cache(k, v, dpos, sc)
         h2 = apply_norm(cfg, pi.ln2, x)
         ck, cv = project_kv(cfg, pi.cross_attn, memory, None)
         qx = project_q(cfg, pi.cross_attn, h2, None)
@@ -178,7 +173,7 @@ def encdec_prefill(cfg, params: EncDecLM, batch: dict, *, s_cache: int | None = 
         x = x + output_proj(pi.cross_attn, xatt)
         x = x + apply_mlp(cfg, pi.mlp, apply_norm(cfg, pi.ln3, x))
         x = constrain(x, "batch", "seq", None)
-        per_layer.append({"k": kc, "v": vc, "pos": pc, "ck": ck, "cv": cv})
+        per_layer.append({**cache, "ck": ck, "cv": cv})
     x = apply_norm(cfg, params.dec_final, x)
     logits = unembed(cfg, params.embeddings, x[:, -1:, :])[:, 0, :]
     layers = {k: torch.stack([c[k] for c in per_layer]) for k in per_layer[0]}
@@ -192,7 +187,6 @@ def encdec_decode_step(cfg, params: EncDecLM, caches: dict, token: torch.Tensor,
     pos = pos.to(torch.int32)
     x = embed_tokens(cfg, params.embeddings, token, cdt)
     x = x + sinusoidal_positions(pos[:, None], cfg.d_model).to(cdt)
-    bidx = torch.arange(x.shape[0], device=x.device)
     mpos = caches["mpos"]
     for j, pi in enumerate(params.decoder):
         ci = {k: v[j] for k, v in caches["layers"].items()}
@@ -200,9 +194,9 @@ def encdec_decode_step(cfg, params: EncDecLM, caches: dict, token: torch.Tensor,
         q = project_q(cfg, pi.self_attn, h, None)
         k1, v1 = project_kv(cfg, pi.self_attn, h, None)
         slot = torch.clamp(pos, max=ci["k"].shape[1] - 1).long()
-        ci["k"][bidx, slot] = k1[:, 0]
-        ci["v"][bidx, slot] = v1[:, 0]
-        ci["pos"][bidx, slot] = pos
+        write_slot(ci["k"], slot, k1[:, 0])
+        write_slot(ci["v"], slot, v1[:, 0])
+        write_slot(ci["pos"], slot, pos)
         att = sdpa_direct(q, ci["k"], ci["v"], pos[:, None], ci["pos"], causal=True)
         x = x + output_proj(pi.self_attn, att)
         h2 = apply_norm(cfg, pi.ln2, x)

@@ -23,8 +23,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from repro_torch.models.common import dense_init_, dtype_of, on_batch_shards, weight_einsum
-from repro_torch.sharding.logical import constrain
+from repro_torch.models.common import (
+    dense_init_,
+    dtype_of,
+    on_batch_shards,
+    weight_einsum,
+    whole_module,
+)
+from repro_torch.sharding.logical import constrain, restored
 
 NEG_INF = -1e30
 
@@ -182,18 +188,15 @@ def _gated_rmsnorm(y, z, scale, dtype):
 
 
 def apply_mamba(cfg, p: Mamba, u: torch.Tensor, *, initial_state=None, return_state=False):
-    """u: (B, T, d_model) → (B, T, d_model) [, final ssd state]."""
-    if isinstance(u, DTensor) and initial_state is not None:
-        raise NotImplementedError("a mixer's initial state on a mesh: sharded prefill "
-                                  "and decode are ROADMAP Queue 1, row B3")
+    """u: (B, T, d_model) → (B, T, d_model) [, final ssd state (B, H, P, N)]."""
     return _mixer(cfg, p, u, initial_state=initial_state, return_state=return_state)
 
 
 # On a mesh the mixer runs on each rank's batch shard with the whole
-# sequence and the whole weights; the result and the final state keep the
-# batch sharding. The causal conv and the chunked scan run along the
-# sequence, and torch 2.11's DTensor cannot pad a sharded sequence
-# (``aten.constant_pad_nd``).
+# sequence and the whole weights; the initial state comes in and the final
+# state goes out with the same batch sharding. The causal conv and the
+# chunked scan run along the sequence, and torch 2.11's DTensor cannot pad a
+# sharded sequence (``aten.constant_pad_nd``).
 @on_batch_shards
 def _mixer(cfg, p: Mamba, u: torch.Tensor, *, initial_state=None, return_state=False):
     bsz, t, _ = u.shape
@@ -267,3 +270,27 @@ def apply_mamba_decode(cfg, p: Mamba, u1: torch.Tensor, cache: dict):
     y1 = _gated_rmsnorm(y1, z, p.gate_norm, u1.dtype)
     out = torch.einsum("bte,ed->btd", y1, p.out_proj.to(u1.dtype))
     return out, {"conv": new_conv, "ssd": new_ssd}
+
+
+def mamba_decode_(cfg, p: Mamba, u1: torch.Tensor, cache: dict) -> torch.Tensor:
+    """:func:`apply_mamba_decode` that writes the new conv window and SSD
+    state into ``cache`` in place and returns the output. On a mesh (``u1``
+    a DTensor) each rank steps its batch rows, held with the same batch
+    sharding in ``u1`` and the cache, with the whole weights."""
+    if not isinstance(u1, DTensor):
+        out, st = apply_mamba_decode(cfg, p, u1, cache)
+        cache["conv"].copy_(st["conv"])
+        cache["ssd"].copy_(st["ssd"])
+        return out
+    u1 = constrain(u1, "batch", None, None)
+    local = {}
+    for name in ("conv", "ssd"):
+        if tuple(cache[name].placements) != tuple(u1.placements):
+            raise ValueError(f"the {name} cache's batch rows {cache[name].placements} are "
+                             f"not the input's {u1.placements}")
+        local[name] = cache[name].to_local()
+    with restored(None):
+        out, st = apply_mamba_decode(cfg, whole_module(p, u1), u1.to_local(), local)
+        local["conv"].copy_(st["conv"])
+        local["ssd"].copy_(st["ssd"])
+    return DTensor.from_local(out, u1.device_mesh, u1.placements, run_check=False)

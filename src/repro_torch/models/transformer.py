@@ -35,10 +35,12 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
     Attention,
+    _local_positions,
     output_proj,
     project_kv,
     project_q,
@@ -46,7 +48,13 @@ from repro_torch.models.attention import (
     sdpa_direct,
     self_attention,
 )
-from repro_torch.models.common import dtype_of, embed_init_, init_module, remat_call
+from repro_torch.models.common import (
+    dtype_of,
+    embed_init_,
+    init_module,
+    on_batch_shards,
+    remat_call,
+)
 from repro_torch.models.layers import (
     MLP,
     Embeddings,
@@ -58,7 +66,7 @@ from repro_torch.models.layers import (
     unembed,
 )
 from repro_torch.models.moe import MoE, apply_moe
-from repro_torch.sharding.logical import constrain
+from repro_torch.sharding.logical import constrain, restored
 
 FULL_WINDOW = 0  # sentinel: window<=0 disables the sliding-window mask
 
@@ -211,11 +219,10 @@ def _dequantize_kv(q, scale, dtype):
     return (q.float() * scale[..., None]).to(dtype)
 
 
-def _attn_prefill(cfg, p, h, positions, window, s_cache, *, chunk=1024):
-    """Self-attention that also emits the layer's KV cache."""
-    q = project_q(cfg, p, h, positions)
-    k, v = project_kv(cfg, p, h, positions)
-    y = sdpa_chunked(q, k, v, positions, positions, causal=True, window=window, chunk=chunk)
+def _cache_from_kv(k, v, positions, s_cache: int, quant: bool) -> dict:
+    """One layer's decode cache (S_cache slots) holding k / v (B, S, KV, Dh)
+    at ``positions`` (B, S): a full cache keeps them at the head, a ring
+    cache (S_cache < S) the last S_cache tokens at slot position mod S_cache."""
     b, s, kvh, dh = k.shape
     kc = torch.zeros((b, s_cache, kvh, dh), dtype=k.dtype, device=k.device)
     vc = torch.zeros_like(kc)
@@ -231,11 +238,83 @@ def _attn_prefill(cfg, p, h, positions, window, s_cache, *, chunk=1024):
         kc[bidx, slots] = k[:, s - s_cache:]
         vc[bidx, slots] = v[:, s - s_cache:]
         pc[bidx, slots] = keep_p
-    if cfg.kv_quant:
+    if quant:
         kq, ks = _quantize_kv(kc)
         vq, vs = _quantize_kv(vc)
-        return output_proj(p, y), {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs, "pos": pc}
-    return output_proj(p, y), {"k": kc, "v": vc, "pos": pc}
+        return {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs, "pos": pc}
+    return {"k": kc, "v": vc, "pos": pc}
+
+
+# Logical axes of a layer's cache entries, (B, S_cache, ...).
+_CACHE_AXES = {"k": ("batch", "kv_seq", "heads", None), "v": ("batch", "kv_seq", "heads", None),
+               "k_scale": ("batch", "kv_seq", "heads"), "v_scale": ("batch", "kv_seq", "heads"),
+               "pos": ("batch", "kv_seq")}
+
+
+def kv_cache(k, v, positions, s_cache: int, quant: bool = False) -> dict:
+    """:func:`_cache_from_kv`; on a mesh (``k`` a DTensor) each rank builds
+    its batch rows' cache from the whole sequence (K/V gathered as the
+    attention gathers them), and each entry is then placed by its logical
+    axes (the sequence over "model" in the context layout, KV heads in
+    heads_tp): the layout ``cache_specs`` gives."""
+    if not isinstance(k, DTensor):
+        return _cache_from_kv(k, v, positions, s_cache, quant)
+    k = constrain(k, "batch", None, "heads", None)
+    v = constrain(v, "batch", None, "heads", None)
+    mesh, pl = k.device_mesh, k.placements
+    with restored(None):
+        cache = _cache_from_kv(k.to_local(), v.to_local(), _local_positions(positions, pl, mesh),
+                               s_cache, quant)
+    return {name: constrain(DTensor.from_local(
+                t, mesh, [p if not p.is_shard() or p.dim < t.ndim else Replicate() for p in pl],
+                run_check=False), *_CACHE_AXES[name])
+            for name, t in cache.items()}
+
+
+def _block_offset(t: DTensor, dim: int) -> int:
+    """Where this rank's block of ``t``'s dim ``dim`` starts: DTensor's
+    ``torch.chunk`` split over each mesh dim that shards it, in mesh order."""
+    size, off, coord = t.shape[dim], 0, t.device_mesh.get_coordinate()
+    for m, p in enumerate(t.placements):
+        if p.is_shard(dim):
+            chunk = -(-size // t.device_mesh.size(m))
+            off += coord[m] * chunk
+            size = max(min(chunk, size - coord[m] * chunk), 0)
+    return off
+
+
+def write_slot(cache: torch.Tensor, slot: torch.Tensor, val: torch.Tensor) -> None:
+    """``cache[b, slot[b]] = val[b]`` for every row b, in place. On a mesh
+    (``cache`` a DTensor, its batch and sequence dims possibly sharded) each
+    rank writes the rows it holds into its own block of slots: a slot outside
+    the block keeps its value (a masked write, so the shapes stay static)."""
+    if not isinstance(cache, DTensor):
+        cache[torch.arange(cache.shape[0], device=cache.device), slot] = val
+        return
+    mesh, cpl = cache.device_mesh, cache.placements
+    rep = [Replicate()] * mesh.ndim
+
+    def rows(t, pl):
+        t = t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, rep, run_check=False)
+        return t.redistribute(mesh, pl).to_local()
+    val = rows(val, [p if not p.is_shard() or p.dim == 0 else
+                     Shard(p.dim - 1) if p.dim >= 2 else Replicate() for p in cpl])
+    slot = rows(slot, [p if p.is_shard(0) else Replicate() for p in cpl])
+    local = cache.to_local()
+    s_loc = local.shape[1]
+    rel = slot - _block_offset(cache, 1)
+    inside = ((rel >= 0) & (rel < s_loc)).reshape((-1,) + (1,) * (val.ndim - 1))
+    bidx = torch.arange(local.shape[0], device=local.device)
+    idx = rel.clamp(0, s_loc - 1)
+    local[bidx, idx] = torch.where(inside, val.to(local.dtype), local[bidx, idx])
+
+
+def _attn_prefill(cfg, p, h, positions, window, s_cache, *, chunk=1024):
+    """Self-attention that also emits the layer's KV cache."""
+    q = project_q(cfg, p, h, positions)
+    k, v = project_kv(cfg, p, h, positions)
+    y = sdpa_chunked(q, k, v, positions, positions, causal=True, window=window, chunk=chunk)
+    return output_proj(p, y), kv_cache(k, v, positions, s_cache, cfg.kv_quant)
 
 
 def _attn_decode(cfg, p, h1, pos, cache, window):
@@ -246,27 +325,28 @@ def _attn_decode(cfg, p, h1, pos, cache, window):
     k1, v1 = project_kv(cfg, p, h1, pos[:, None])
     s_cache = cache["k"].shape[1]
     slot = (pos % s_cache if window else torch.clamp(pos, max=s_cache - 1)).long()
-    bidx = torch.arange(h1.shape[0], device=h1.device)
-    cache["pos"][bidx, slot] = pos.to(torch.int32)
+    write_slot(cache["pos"], slot, pos.to(torch.int32))
     if cfg.kv_quant:
         kq1, ks1 = _quantize_kv(k1[:, 0])
         vq1, vs1 = _quantize_kv(v1[:, 0])
-        cache["k"][bidx, slot] = kq1
-        cache["k_scale"][bidx, slot] = ks1
-        cache["v"][bidx, slot] = vq1
-        cache["v_scale"][bidx, slot] = vs1
+        write_slot(cache["k"], slot, kq1)
+        write_slot(cache["k_scale"], slot, ks1)
+        write_slot(cache["v"], slot, vq1)
+        write_slot(cache["v_scale"], slot, vs1)
         kc = _dequantize_kv(cache["k"], cache["k_scale"], h1.dtype)
         vc = _dequantize_kv(cache["v"], cache["v_scale"], h1.dtype)
     else:
-        cache["k"][bidx, slot] = k1[:, 0]
-        cache["v"][bidx, slot] = v1[:, 0]
+        write_slot(cache["k"], slot, k1[:, 0])
+        write_slot(cache["v"], slot, v1[:, 0])
         kc, vc = cache["k"], cache["v"]
     y = sdpa_direct(q, kc, vc, pos[:, None], cache["pos"], causal=True, window=window)
     return output_proj(p, y)
 
 
+@on_batch_shards
 def _conv_tail(cfg, pm, h):
-    """Last K-1 conv inputs (for decode continuation after prefill)."""
+    """Last K-1 conv inputs (for decode continuation after prefill); on a
+    mesh, of each rank's batch rows."""
     proj = torch.einsum("btd,de->bte", h, pm.in_proj.to(h.dtype))
     _, xc, bm, cm, _ = ssm_mod._split_in(cfg, proj)
     xbc = torch.cat([xc, bm, cm], dim=-1)
@@ -315,15 +395,10 @@ def apply_layer_decode(cfg, kind, p, x1, pos, cache, window):
             y = apply_mlp(cfg, p.mlp, h2)
         return x1 + y
     if kind == "ssm":
-        y, st = ssm_mod.apply_mamba_decode(cfg, p.mamba, h, cache)
-        cache["conv"].copy_(st["conv"])
-        cache["ssd"].copy_(st["ssd"])
-        return x1 + y
+        return x1 + ssm_mod.mamba_decode_(cfg, p.mamba, h, cache)
     if kind == "hybrid":
         att = _attn_decode(cfg, p.attn, h, pos, cache, window)
-        mam, st = ssm_mod.apply_mamba_decode(cfg, p.mamba, h, cache)
-        cache["conv"].copy_(st["conv"])
-        cache["ssd"].copy_(st["ssd"])
+        mam = ssm_mod.mamba_decode_(cfg, p.mamba, h, cache)
         x1 = x1 + 0.5 * (_rms(att, p.bnorm_a) + _rms(mam, p.bnorm_m))
         return x1 + apply_mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, x1))
     raise ValueError(kind)

@@ -25,8 +25,11 @@ onto this mesh, whatever mesh wrote the checkpoint. It is multi-controller,
 as ``core.distributed``: every rank of the mesh calls ``train`` with the
 same arguments, and ``params`` comes back with DTensor parameters whose
 ``full_tensor()`` is the global value. ``device`` must be of the mesh's
-device type. ``grad_accum > 1`` raises ``NotImplementedError`` under a
-mesh (ROADMAP Queue 1, row B1).
+device type. With ``grad_accum > 1`` each global batch is split into its
+microbatches before it is placed (``launch.steps.split_batch``: microbatch
+``i`` is rows ``[i·B/accum, (i+1)·B/accum)``, as in the reference), each
+microbatch by the batch specs, so every microbatch is spread over all the
+batch shards.
 """
 
 from __future__ import annotations
@@ -42,13 +45,14 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.data.tokens import SyntheticTokens
-from repro_torch.launch.steps import _cell_rules, make_train_step, micro_grads
+from repro_torch.launch.steps import _cell_rules, make_train_step, micro_grads, split_batch
 from repro_torch.models import build_model
 from repro_torch.models.convert import flatten_paths, load_reference_tree, reference_tree
 from repro_torch.models.model import model_module
 from repro_torch.sharding.logical import logical_axis_rules
 from repro_torch.sharding.partition import (
     NamedSharding,
+    P,
     batch_specs,
     distribute,
     named,
@@ -79,13 +83,14 @@ def make_accum_train_step(cfg, accum: int, total_steps: int = 100_000, *, device
     """Gradient accumulation: ``accum`` microbatches whose gradients are
     summed in float32, then divided by ``accum``, and one optimizer update
     (the same API as ``make_train_step``; the batch's leading dim must be
-    accum x microbatch). Metrics: ``loss``, ``grad_norm``, ``lr``."""
+    accum x microbatch, or the batch comes split: ``launch.steps.split_batch``).
+    Metrics: ``loss``, ``grad_norm``, ``lr``."""
     api = build_model(cfg, device=device)
     ocfg, oinit, oupdate = make_optimizer(cfg.optimizer, total_steps=total_steps)
 
     def train_step(params, opt_state, batch):
         params.zero_grad(set_to_none=True)
-        gsum = {k: torch.zeros(p.shape, dtype=torch.float32, device=api.device)
+        gsum = {k: torch.zeros_like(p, dtype=torch.float32)
                 for k, p in params.named_parameters()}
         lsum = torch.zeros((), dtype=torch.float32, device=api.device)
         for loss, gs in micro_grads(api, params, batch, accum):
@@ -122,12 +127,18 @@ def state_shardings(cfg, oinit, mesh) -> dict:
                         "opt": optimizer_state_specs(pspecs, oinit(meta))})
 
 
-def shard_batch(cfg, batch: dict, mesh, device) -> dict:
+def shard_batch(cfg, batch: dict, mesh, device, accum: int = 1) -> dict:
     """A global batch (numpy or tensors, the same on every rank) placed by
-    ``batch_specs``: this rank's slice of it on ``device``."""
+    ``batch_specs``: this rank's slice of it on ``device``. With ``accum >
+    1`` it is split first (``split_batch``) and each microbatch placed by
+    the specs: leaves ``(accum, B/accum, ...)`` on ``P(None, *spec)``."""
     specs = batch_specs(cfg, mesh, seq_shard=cfg.attn_layout != "heads_tp")
-    return {k: distribute((v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v)))
-                          .to(device), NamedSharding(mesh, specs[k]))
+    batch = {k: v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+             for k, v in batch.items()}
+    if accum > 1:
+        batch = split_batch(batch, accum)
+        specs = {k: P(None, *spec) for k, spec in specs.items()}
+    return {k: distribute(v.to(device), NamedSharding(mesh, specs[k]))
             for k, v in batch.items()}
 
 
@@ -148,11 +159,6 @@ def train(cfg, loop: TrainLoopConfig, *, mesh=None,
     """Run the loop; returns ``{"history", "params", "opt", "stragglers"}``
     (``params`` the model, updated in place). ``device=None`` is the card.
     ``mesh``: a ``DeviceMesh`` to shard over (see the module docstring)."""
-    if mesh is not None:
-        if loop.grad_accum > 1:
-            raise NotImplementedError(
-                f"{cfg.name} on a mesh with grad_accum > 1: the microbatch split of a "
-                "batch-sharded DTensor is not held to the reference (ROADMAP Queue 1, row B1)")
     api = build_model(cfg, device=device)
     dev = api.device
     if mesh is not None and mesh.device_type != dev.type:
@@ -203,7 +209,8 @@ def train(cfg, loop: TrainLoopConfig, *, mesh=None,
                 model, opt, metrics = step_fn(model, opt, batch)
             else:
                 with on_mesh(cfg, mesh):
-                    model, opt, metrics = step_fn(model, opt, shard_batch(cfg, batch, mesh, dev))
+                    model, opt, metrics = step_fn(model, opt, shard_batch(
+                        cfg, batch, mesh, dev, accum=loop.grad_accum))
             metrics = {k: _replicated(v) for k, v in metrics.items()}   # waits for the step
             dt = watchdog.stop(step)
             metrics["step_time_s"] = dt

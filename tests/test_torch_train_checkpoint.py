@@ -7,6 +7,7 @@ bfloat16 leaf crosses as its bits. ``AsyncCheckpointer.save`` followed at
 once by an in-place step writes the pre-step values.
 """
 
+import dataclasses
 import os
 import signal
 import subprocess
@@ -155,7 +156,7 @@ def test_mesh_and_shardings_wait_for_item_b(tmp_path):
     """Item B has come: on a one-rank gloo world and a (1, 1) mesh,
     ``train(mesh=)`` trains as one process, ``restore(shardings=)`` and
     ``resume_or_init(shardings=)`` place the saved arrays as DTensors;
-    ``grad_accum > 1`` raises, naming its ROADMAP row."""
+    ``grad_accum > 1`` on the mesh trains as one process too."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -184,8 +185,9 @@ def test_mesh_and_shardings_wait_for_item_b(tmp_path):
         moe = get_config("mixtral-8x7b").reduced()
         assert ([h["loss"] for h in train(moe, loop, mesh=mesh, device=CPU)["history"]]
                 == [h["loss"] for h in train(moe, loop, device=CPU)["history"]])
-        with pytest.raises(NotImplementedError, match="row B1"):
-            train(cfg, TrainLoopConfig(total_steps=1, grad_accum=2), mesh=mesh, device=CPU)
+        accum = dataclasses.replace(loop, grad_accum=2)   # microbatches on a mesh
+        assert ([h["loss"] for h in train(cfg, accum, mesh=mesh, device=CPU)["history"]]
+                == [h["loss"] for h in train(cfg, accum, device=CPU)["history"]])
     finally:
         dist.destroy_process_group()
 
