@@ -211,17 +211,28 @@ Phases, each printing one JSON line:
     smollm-360m, mixtral, arctic): the loss and every gradient on the mesh
     against one process on the card, and ``train(mesh=)`` with
     ``grad_accum=2`` (reduced smollm) giving one process's loss within
-    ``MESH_LOSS_RTOL``. ``python3 chip_smoke.py mesh`` runs the device and
+    ``MESH_LOSS_RTOL``; (g) mesh row B4, the MoE layer and the Mamba2 mixer
+    sharded over "model": mamba2-130m as published and mixtral-8x7b at full
+    width cut to one layer (``MESH_B4_CHECK``), float32 on the mesh against
+    one process on the card (loss, every gradient, one AdamW step,
+    ``TRAIN_*`` tolerances; the ranks first, then one process), then, in
+    the same world, two bfloat16 steps of each at 8 x 1024 (one microbatch)
+    through ``train(mesh=)`` by ``tools/mesh_b4.py``'s ``train_counted`` (ms
+    a step, tokens/s, peak a rank, collectives of one step by kind; no
+    kernel of ``csrc`` launched on any rank). ``python3 chip_smoke.py mesh`` runs the device and
     ``mesh`` phases alone.
 18. ``dryrun`` (``repro_torch.launch``: ``build_cell``, ``lower_cell``,
     ``cost``, ``roofline``, ``dryrun``; plain PyTorch, no kernel of
-    ``csrc``). (a) The dry run itself, two children at once:
+    ``csrc``). (a) The dry run itself, three children at once:
     ``python -m repro_torch.launch.dryrun --arch smollm-135m --mesh single``
-    (train_4k, prefill_32k, decode_32k) and ``--arch mixtral-8x7b --shape
-    train_4k`` (grad_accum 4: the batch taken as microbatches), each on a
-    fake world of 256 ranks with fake CUDA tensors (nothing allocated),
-    probes at depths (4, 8); each cell's roofline line from its report
-    under ``reports/dryrun_torch/``. (b) Calibration, in a spawned 1-rank
+    (train_4k, prefill_32k, decode_32k), ``--arch mixtral-8x7b --shape
+    train_4k`` (grad_accum 4: the batch taken as microbatches) and ``--arch
+    mamba2-130m --shape train_4k``, each on a fake world of 256 ranks with
+    fake CUDA tensors (nothing allocated), probes at depths (4, 8); each
+    cell's roofline line from its report under ``reports/dryrun_torch/``,
+    every cell fitting 80 GB, and a ``b4`` line with the flops and collective
+    bytes a rank of mixtral's and mamba2's train_4k, each within
+    ``DRYRUN_B4_FLOPS``. (b) Calibration, in a spawned 1-rank
     NCCL world on a (1, 1) mesh: smollm-135m as published, seeded, with real
     weights on the card, for ``CALIB_CELLS`` (train at 8 x 2048, decode at
     B = 64 against a 4096-slot cache): ``lower_cell`` on fake tensors, then
@@ -253,6 +264,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -263,10 +275,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.append(str(ROOT / "tools"))
 
+from mesh_b4 import ARCHS as B4_ARCHS  # noqa: E402
+from mesh_b4 import train_counted  # noqa: E402
 from repro_torch.analysis import audit, op_lint  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.shapes import ShapeCell  # noqa: E402
@@ -2816,7 +2833,7 @@ def _grad_gaps(got: dict, want: dict) -> tuple[float, dict]:
     tols, worst = {}, 0.0
     for n, w in want.items():
         tols[n] = TRAIN_GRAD_RTOL * float(w.abs().max()) + TRAIN_GRAD_FLOOR * top
-        worst = max(worst, float((got[n].cpu() - w).abs().max()) / tols[n])
+        worst = max(worst, float((got[n].to(w.device) - w).abs().max()) / tols[n])
     return worst, tols
 
 
@@ -3032,6 +3049,27 @@ MESH_ARCH_BATCH = (4, 64)
 # One step of reduced smollm with grad_accum 2: two microbatches of 8 rows.
 MESH_ACCUM = TrainLoopConfig(total_steps=1, grad_accum=2)
 MESH_TIMEOUT_S = 600
+# (g) Mesh row B4, the MoE layer and the Mamba2 mixer sharded over "model":
+# float32 on the mesh against one process on the card, from the same seeded
+# weights, the loss, every gradient and one AdamW step (TRAIN_* tolerances).
+# mamba2-130m as published at 2 x 512 (a chunk of 256 a "model" rank: the
+# conv halo and the state combine; reduced hymba in (f) takes the rule that
+# runs the SSD whole); mixtral-8x7b at full width, one layer
+# of 32 (float32: 6.9 GB of weights with the embeddings, 28 GB for one
+# process with its gradients and AdamW's moments; the ranks hold a quarter of
+# the weights each and gather only their d_ff half of the experts). The
+# ranks run first, rank 0 keeping the gathered results on the host, then one
+# process on rank 0 while the others wait.
+# The cuts are tools/mesh_b4.py's ARCHS.
+MESH_B4_CHECK = (("mamba2-130m", (2, 512)), ("mixtral-8x7b", (2, 256)))
+# Then, in the same world, steps of each at full width through train(mesh=)
+# (bfloat16 compute, the published optimizer), by tools/mesh_b4.py's
+# train_counted: ms a step, tokens/s, peak a rank, collectives of one more
+# step by kind. Two steps of 8 x 1024 in one microbatch here, for the
+# script's time (a mixtral step of four microbatches takes ~35 s over gloo,
+# its weights' collectives repeated in each); the tool itself runs three
+# steps at the published grad_accum, and compares two trees.
+MESH_B4_STEPS = TrainLoopConfig(total_steps=2, log_every=1, seq_len=1024, global_batch=8)
 # Host spans of a profiled step that are collectives: the functional ops
 # DTensor issues (routed through c10d), c10d's own, gloo's.
 MESH_COLLECTIVE_SPANS = ("_c10d_functional::", "c10d::", "gloo:")
@@ -3278,21 +3316,16 @@ def _mesh_rank(rank: int) -> None:
 
 
 def _mesh_rank_run(rank: int) -> dict:
-    from torch.distributed.tensor.debug import CommDebugMode
-
     cfg = get_config(LM_ARCH)
     mesh = make_compat_mesh(MESH_SHAPE, ("data", "model"))
     reset_launches()
     out = {"rank": rank, "coord": list(mesh.get_coordinate())}
-    # (a) The run: train(mesh=), a checkpoint at step 2.
-    hist: list[dict] = []
-    torch.cuda.reset_peak_memory_stats()
-    res = train(cfg, TrainLoopConfig(ckpt_dir=str(MESH_DIR / "ckpt"), **MESH_LOOP),
-                mesh=mesh, device=DEV, log_fn=lambda s, m: hist.append({"step": s, **m}))
-    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    out["losses"] = [h["loss"] for h in hist]
-    out["step_ms"] = [h["step_time_s"] * 1e3 for h in hist]
-    out["grad_norms"] = [h["grad_norm"] for h in hist]
+    # (a) The run: train(mesh=), a checkpoint at step 2; then the collectives
+    # of one step (a fifth step, after the run's four).
+    res, run = train_counted(cfg, TrainLoopConfig(ckpt_dir=str(MESH_DIR / "ckpt"), **MESH_LOOP),
+                             mesh, DEV)
+    out.update({k: run[k] for k in ("peak_gb", "losses", "step_ms", "grad_norms",
+                                    "counted_step_ms", "collectives")})
     model, opt = res["params"], res["opt"]
     tokens = shard_batch(cfg, _mesh_tokens().batch_at(0), mesh, DEV)["tokens"]
     embed = model.embeddings.embed
@@ -3301,15 +3334,6 @@ def _mesh_rank_run(rank: int) -> dict:
                              [str(p) for p in embed.placements]],
         "tokens": [list(tokens.shape), list(tokens.to_local().shape),
                    [str(p) for p in tokens.placements]]}
-    # The collectives of one step (a fifth step, after the run's four).
-    comm = CommDebugMode()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with comm:
-        _mesh_one_step(cfg, model, opt, mesh, MESH_LOOP["total_steps"])
-    torch.cuda.synchronize()
-    out["counted_step_ms"] = (time.perf_counter() - t0) * 1e3
-    out["collectives"] = {str(k): v for k, v in comm.get_comm_counts().items()}
     # Where a step's time goes (a sixth step, profiled on every rank).
     out["profile"] = _mesh_step_profile(cfg, model, opt, mesh)
     del model, opt, res, embed, tokens
@@ -3319,6 +3343,138 @@ def _mesh_rank_run(rank: int) -> dict:
     out["archs"] = _mesh_archs(mesh)
     out["launches"] = launches()
     return out
+
+
+def _b4_cfg(arch: str):
+    return dataclasses.replace(get_config(arch), compute_dtype="float32",
+                               param_dtype="float32", **B4_ARCHS[arch])
+
+
+def _b4_batch(cfg, b: int, t: int) -> dict:
+    return SyntheticTokens(cfg.vocab_size, seq_len=t, global_batch=b, seed=3).batch_at(0)
+
+
+def _gathered(tensors: dict, keep: bool) -> dict | None:
+    """Each DTensor gathered (every rank takes part) and moved to the host
+    where ``keep``, one at a time: a full-width layer's whole tensors do not
+    fit the card four times over."""
+    out = {}
+    for n, t in tensors.items():
+        whole = t.full_tensor()
+        if keep:
+            out[n] = whole.cpu()
+        del whole
+    return out if keep else None
+
+
+def _own_shards(model: torch.nn.Module) -> torch.nn.Module:
+    """Each DTensor parameter on a copy of its local shard: a shard that is a
+    view of the whole initial tensor would keep all of it alive."""
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        model.get_submodule(owner)._parameters[leaf] = torch.nn.Parameter(
+            DTensor.from_local(p.detach().to_local().clone(), p.device_mesh, p.placements,
+                               run_check=False), requires_grad=p.requires_grad)
+    return model
+
+
+def _sharded_zeros(tree, shardings):
+    """A tree of zeros placed by ``shardings``, made shard by shard (the
+    optimizer's state of a full-width layer, without its whole tensors)."""
+    if isinstance(tree, dict):
+        return {k: _sharded_zeros(v, shardings[k]) for k, v in tree.items()}
+    return dtensor_zeros(tuple(tree.shape), dtype=tree.dtype, device_mesh=shardings.mesh,
+                         placements=shardings.placements)
+
+
+def _b4_mesh_step(cfg, mesh, b: int, t: int, keep: bool):
+    """(g) The loss, every gradient and one AdamW step of ``cfg`` on the mesh
+    from the seeded weights; on the host where ``keep``."""
+    api = build_model(cfg, device=DEV)
+    model = _own_shards(shard_params(cfg, api.init(torch.Generator(DEV).manual_seed(2)), mesh))
+    torch.cuda.empty_cache()
+    with on_mesh(cfg, mesh):
+        loss, _ = api.loss(model, shard_batch(cfg, _b4_batch(cfg, b, t), mesh, DEV))
+        loss.backward()
+    torch.cuda.empty_cache()
+    out = {"loss": float(loss.detach().full_tensor()),
+           "grads": _gathered({n: p.grad for n, p in model.named_parameters()}, keep)}
+    ocfg, oinit, _ = make_optimizer("adamw", total_steps=MESH_LOOP["total_steps"])
+    opt = _sharded_zeros(oinit(model_module(cfg, device="meta")),
+                         state_shardings(cfg, oinit, mesh)["opt"])
+    with on_mesh(cfg, mesh):
+        adamw_update(ocfg, None, opt, model)
+    out["params"] = _gathered({n: p.detach() for n, p in model.named_parameters()}, keep)
+    return out
+
+
+def _b4_compare(cfg, got: dict, b: int, t: int) -> dict:
+    """(g) One process on the card from the same weights, held against the
+    mesh's ``got`` (compared on the card: the other ranks hold nothing)."""
+    api = build_model(cfg, device=DEV)
+    ref = api.init(torch.Generator(DEV).manual_seed(2))
+    want_loss, want = _grads(api, ref, _b4_batch(cfg, b, t))
+    for n, p in ref.named_parameters():   # the step reads the copies: one set in memory
+        p.grad = want[n]
+    ocfg, _, _ = make_optimizer("adamw", total_steps=MESH_LOOP["total_steps"])
+    _, _, om = adamw_update(ocfg, None, adamw_init(ref), ref)
+    lr = float(om["lr"])
+    require(set(got["grads"]) == set(want), f"{cfg.name}: mesh and one process differ in grads")
+    grad_ratio, tols = _grad_gaps(got["grads"], want)
+    strict_err, loose_err, loose = _adamw_gaps(
+        {n: q.to(DEV) for n, q in got["params"].items()},
+        {n: p.detach() for n, p in ref.named_parameters()}, want, tols, lr)
+    return {"shape": [b, t], "layers": cfg.num_layers, "params": param_count(ref),
+            "loss_one_process": want_loss, "loss_mesh": got["loss"],
+            "loss_abs_err": abs(got["loss"] - want_loss), "grad_err_over_tol": grad_ratio,
+            "step_lr": lr, "param_max_abs_err": strict_err,
+            "small_grad_param_max_abs_err": loose_err, "small_grad_params_apart": loose}
+
+
+def _b4_rank(rank: int) -> None:
+    """One gloo rank of (g) (the target of ``torch.multiprocessing.spawn``):
+    each parity case on the mesh, then one process on rank 0 while the others
+    wait; then the steps of each arch. Rank 0 writes ``b4.json``: the parity
+    cases, the steps (each rank's peak) and each rank's kernel launches."""
+    torch.cuda.set_device(DEV)
+    dist.init_process_group("gloo", init_method=f"file://{MESH_DIR / 'b4.store'}", rank=rank,
+                            world_size=MESH_WORLD, timeout=timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        reset_launches()
+        mesh = make_compat_mesh(MESH_SHAPE, ("data", "model"))
+        out = {}
+        for arch, (b, t) in MESH_B4_CHECK:
+            cfg = _b4_cfg(arch)
+            t0 = time.perf_counter()
+            got = _b4_mesh_step(cfg, mesh, b, t, keep=rank == 0)
+            torch.cuda.empty_cache()
+            dist.barrier()
+            if rank == 0:
+                t1 = time.perf_counter()
+                out[f"{arch}/{b}x{t}"] = {**_b4_compare(cfg, got, b, t), "mesh_s": t1 - t0,
+                                          "one_process_s": time.perf_counter() - t1}
+                del got
+                torch.cuda.empty_cache()
+            dist.barrier()
+        steps = {}
+        for arch in B4_ARCHS:
+            cfg = dataclasses.replace(get_config(arch), grad_accum=MESH_B4_STEPS.grad_accum,
+                                      **B4_ARCHS[arch])
+            t0 = time.perf_counter()
+            res, run = train_counted(cfg, MESH_B4_STEPS, mesh, DEV)
+            run["params"] = param_count(res["params"])
+            del res
+            torch.cuda.empty_cache()
+            peaks = [None] * MESH_WORLD
+            dist.all_gather_object(peaks, run.pop("peak_gb"))
+            steps[arch] = {**run, "peak_gb_per_rank": peaks, "seconds": time.perf_counter() - t0}
+        runs = [None] * MESH_WORLD
+        dist.all_gather_object(runs, launches())
+        if rank == 0:
+            (MESH_DIR / "b4.json").write_text(json.dumps(
+                {"parity": out, "steps": steps, "launches_per_rank": runs}))
+    finally:
+        dist.destroy_process_group()
 
 
 def _mesh_nccl_one_rank(cfg) -> dict:
@@ -3453,11 +3609,39 @@ def phase_mesh() -> dict:
             f"NCCL (1, 1) loss {nccl['loss']} vs one process {want[0]}")
     emit({"phase": "mesh", "what": "nccl_one_rank", "mesh": [1, 1], **nccl})
 
-    # (e) No kernel of csrc on this path.
+    # (g) Row B4: the MoE layer and the mixer sharded over "model".
+    torch.cuda.empty_cache()
+    torch.multiprocessing.spawn(_b4_rank, nprocs=MESH_WORLD, join=True)
+    b4 = json.loads((MESH_DIR / "b4.json").read_text())
+    for name, res in b4["parity"].items():
+        emit({"phase": "mesh", "what": "b4_parity", "case": name, "card": _smi(), **res})
+        require(math.isfinite(res["loss_mesh"])
+                and res["loss_abs_err"] <= TRAIN_LOSS_RTOL * abs(res["loss_one_process"]),
+                f"{name} on the mesh: loss {res['loss_mesh']} vs {res['loss_one_process']}")
+        require(res["grad_err_over_tol"] <= 1.0, f"{name} gradients: {res['grad_err_over_tol']} "
+                "x the tolerance")
+        require(res["param_max_abs_err"] <= TRAIN_PARAM_ATOL
+                and res["small_grad_param_max_abs_err"] <= 2 * res["step_lr"] + TRAIN_PARAM_ATOL,
+                f"{name}: the AdamW step on the mesh differs: {res}")
+    require(len(b4["parity"]) == len(MESH_B4_CHECK), f"B4 cases {sorted(b4['parity'])}")
+    loop = MESH_B4_STEPS
+    for arch, st in b4["steps"].items():
+        med = statistics.median(st["step_ms"][1:])
+        emit({"phase": "mesh", "what": "b4_steps", "card": _smi(), "arch": arch,
+              "cuts": B4_ARCHS[arch], "mesh": list(MESH_SHAPE), "batch": loop.global_batch,
+              "seq": loop.seq_len, "steps": loop.total_steps, "grad_accum": loop.grad_accum,
+              "median_step_ms": med, "tokens_per_s": loop.global_batch * loop.seq_len / (med / 1e3),
+              **st})
+        require(all(map(math.isfinite, st["losses"])), f"{arch} steps: losses {st['losses']}")
+    require(sorted(b4["steps"]) == sorted(B4_ARCHS), f"B4 steps for {sorted(b4['steps'])}")
+
+    # (e) No kernel of csrc on this path: this process's, (g)'s ranks'.
     runs = launches()
     require(runs == {k: 0 for k in runs}, f"the mesh phase launched a kernel of csrc: {runs}")
+    require(all(r == runs for r in b4["launches_per_rank"]),
+            f"(g)'s ranks launched a kernel of csrc: {b4['launches_per_rank']}")
     out = {"launches": runs, "rank_launches": [r["launches"] for r in ranks],
-           "seconds": time.perf_counter() - t_phase}
+           "b4_rank_launches": b4["launches_per_rank"], "seconds": time.perf_counter() - t_phase}
     emit({"phase": "mesh", **out})
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     return {**run, **out}
@@ -3468,7 +3652,11 @@ def phase_mesh() -> dict:
 # ---------------------------------------------------------------------------
 
 DRYRUN_RUNS = (("--arch", "smollm-135m", "--mesh", "single"),
-               ("--arch", "mixtral-8x7b", "--shape", "train_4k", "--mesh", "single"))
+               ("--arch", "mixtral-8x7b", "--shape", "train_4k", "--mesh", "single"),
+               ("--arch", "mamba2-130m", "--shape", "train_4k", "--mesh", "single"))
+# Row B4: the flops a rank counts of the cells whose MoE layer or mixer the
+# 16 "model" ranks no longer repeat (9.587e15 and 5.478e13 when they did).
+DRYRUN_B4_FLOPS = {"mixtral-8x7b×train_4k": 2.4e15, "mamba2-130m×train_4k": 1.37e13}
 DRYRUN_REPORTS = ROOT / "reports" / "dryrun_torch"
 DRYRUN_TIMEOUT_S = 600
 CALIB_ARCH = "smollm-135m"
@@ -3618,10 +3806,18 @@ def phase_dryrun() -> dict:
         emit({"phase": "dryrun", "what": "cell", "cell": f"{r['arch']}×{r['shape']}",
               "mesh": r["mesh"], **cells[f"{r['arch']}×{r['shape']}"]})
     want = {"smollm-135m×train_4k", "smollm-135m×prefill_32k", "smollm-135m×decode_32k",
-            "mixtral-8x7b×train_4k"}
+            *DRYRUN_B4_FLOPS}
     require(set(cells) == want, f"dry-run cells {sorted(cells)}")
     for name, c in cells.items():
         require(c["hlo_flops"] > 0 and c["model_flops"] > 0, f"{name}: no flops counted")
+        require(c["fits_80gb_hbm"], f"{name}: {c['peak_gb']} GB a rank does not fit")
+    emit({"phase": "dryrun", "what": "b4", "card": smi,
+          **{name: {"flops_per_rank": cells[name]["hlo_flops"],
+                    "coll_bytes_per_rank": cells[name]["coll_bytes"], "limit_flops": limit}
+             for name, limit in DRYRUN_B4_FLOPS.items()}})
+    for name, limit in DRYRUN_B4_FLOPS.items():
+        require(cells[name]["hlo_flops"] <= limit,
+                f"{name}: {cells[name]['hlo_flops']:.4g} flops a rank > {limit:.4g}")
     print("\n".join(dry["tables"]), flush=True)
     emit({"phase": "dryrun", "what": "dryrun_seconds", "seconds": dry["seconds"]})
 

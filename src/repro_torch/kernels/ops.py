@@ -34,6 +34,7 @@ __all__ = [
     "glcm_cuda_volume",
     "glcm_cuda_windowed",
     "histogram",
+    "one_hot",
     "onehot_count",
     "default_tile_h",
     "default_slab_d",
@@ -189,6 +190,14 @@ def histogram(
     return _histogram(values, levels=levels, chunk=chunk, copies=copies)
 
 
+def one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """(..., n) one-hot of the integer ``idx`` in ``dtype``; an index outside
+    [0, n) is all zeros. A comparison with an iota, as ``jax.nn.one_hot``
+    computes it: ``F.one_hot`` reads its indices' range on the host (a
+    data-dependent path that a fake tensor cannot take)."""
+    return (idx[..., None] == torch.arange(n, dtype=idx.dtype, device=idx.device)).to(dtype)
+
+
 def onehot_count(
     indices: torch.Tensor,
     num_classes: int,
@@ -203,7 +212,6 @@ def onehot_count(
     nowhere.
     """
     idx = indices.to(torch.int32)
-    onehot = idx[..., None] == torch.arange(num_classes, dtype=torch.int32, device=idx.device)
     if weights is not None:
-        return (onehot.to(weights.dtype) * weights[..., None]).sum(dim=-2)
-    return onehot.to(torch.float32).sum(dim=-2)
+        return (one_hot(idx, num_classes, weights.dtype) * weights[..., None]).sum(dim=-2)
+    return one_hot(idx, num_classes, torch.float32).sum(dim=-2)

@@ -72,6 +72,10 @@ _COLLECTIVE_OF = {
     "all_to_all_single": "all-to-all",
     "shard_dim_alltoall": "all-to-all",
 }
+# Functional ops that move no data: the wait for a collective's result, and
+# the wrap of a result that needs grad as an ``AsyncCollectiveTensor`` (torch
+# 2.13 issues it for a collective's output on real tensors).
+_NO_TRAFFIC = frozenset({"wait_tensor", "_wrap_tensor_autograd"})
 _NO_BYTES = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
                        "new_empty_strided"})
 
@@ -226,7 +230,7 @@ class CostMode(TorchDispatchMode):
             self.coll[_COLLECTIVE_OF[name]] += sum(_nbytes(t) for t in outs)
             return out
         if ns == "_c10d_functional":
-            if name != "wait_tensor":
+            if name not in _NO_TRAFFIC:
                 raise NotImplementedError(f"collective {func} has no reference name")
             return out
         if func._overloadpacket in flop_registry:

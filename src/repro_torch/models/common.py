@@ -12,7 +12,6 @@ bits, so parity goes through the converter, never through ``init``.
 
 from __future__ import annotations
 
-import functools
 import math
 from types import SimpleNamespace
 
@@ -22,10 +21,12 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.sharding import logical
+from repro_torch.sharding.partition import MODEL_AXIS
 
 __all__ = ["cast_tree", "dense_init_", "dtype_of", "embed_init_", "init_module",
-           "on_batch_shards", "param_bytes", "param_count", "remat_call", "tree_paths",
-           "weight_einsum", "weight_local", "whole_module", "whole_weight"]
+           "local_weight", "model_index", "model_shard_dim", "model_split", "over_model",
+           "param_bytes", "param_count", "remat_call", "tree_paths", "weight_einsum",
+           "weight_local", "whole_module", "whole_weight"]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -139,35 +140,67 @@ def whole_module(module: nn.Module, x: DTensor) -> SimpleNamespace:
     return ns
 
 
-def on_batch_shards(apply):
-    """A layer ``apply(cfg, p, x, **kw)`` that, on a mesh (``x`` a DTensor),
-    runs on each rank's batch shard with the whole sequence (``x`` constrained
-    to ("batch", None, None)) and the whole weights (:func:`whole_module`),
-    the rules suspended (a DTensor keyword argument, such as an initial
-    state, likewise takes its batch rows). Each output with dims takes
-    ``x``'s placements; a 0-dim output, a mean over batch rows, becomes the
-    rank's local mean over the number of batch shards, ``Partial`` over
-    them. Off a mesh it is ``apply``."""
-    @functools.wraps(apply)
-    def wrapped(cfg, p, x, **kw):
-        if not isinstance(x, DTensor):
-            return apply(cfg, p, x, **kw)
-        x = logical.constrain(x, "batch", None, None)
-        # A DTensor keyword (the mixer's initial state) takes x's batch rows.
-        kw = {k: logical.constrain(v, "batch", *(None,) * (v.ndim - 1)).to_local()
-              if isinstance(v, DTensor) else v for k, v in kw.items()}
-        with logical.restored(None):
-            out = apply(cfg, whole_module(p, x), x.to_local(), **kw)
-        mesh = x.device_mesh
-        shards = math.prod(mesh.size(m) for m, pl in enumerate(x.placements) if pl.is_shard())
-        mean = [Partial() if pl.is_shard() else Replicate() for pl in x.placements]
+def model_index(mesh) -> int | None:
+    """The index of ``mesh``'s "model" dim when it has one of more than one rank."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if MODEL_AXIS not in names or mesh.size(names.index(MODEL_AXIS)) == 1:
+        return None
+    return names.index(MODEL_AXIS)
 
-        def place(t):
-            if t.ndim == 0:
-                return DTensor.from_local(t / shards, mesh, mean, run_check=False)
-            return DTensor.from_local(t, mesh, x.placements, run_check=False)
-        return tuple(map(place, out)) if isinstance(out, tuple) else place(out)
-    return wrapped
+
+def model_split(x: DTensor) -> tuple[int, int] | None:
+    """``(rank, ranks)`` over ``x``'s mesh dim "model" when ``x``'s sequence
+    (dim 1) is sharded over it, each rank holding one block in rank order;
+    None when every "model" rank holds the whole sequence (a sequence that
+    does not divide, a decode token, or no "model" dim of more than one rank)."""
+    mesh = x.device_mesh
+    i = model_index(mesh)
+    if i is None or not x.placements[i].is_shard(1):
+        return None
+    return mesh.get_local_rank(i), mesh.size(i)
+
+
+def model_shard_dim(w: torch.Tensor) -> int | None:
+    """The dim of the weight ``w`` that its placement shards over "model", or None."""
+    if not isinstance(w, DTensor):
+        return None
+    i = model_index(w.device_mesh)
+    return None if i is None or not w.placements[i].is_shard() else w.placements[i].dim
+
+
+def over_model(t: torch.Tensor, mesh, src, dst, grad=None) -> torch.Tensor:
+    """A collective over ``mesh``'s "model" dim on a plain tensor: ``t``, this
+    rank's piece of a tensor placed ``src`` over "model", redistributed to
+    ``dst``; this rank's piece of the result as a plain tensor (Shard → Replicate
+    is an all-gather, Partial → Replicate an all-reduce, Partial → Shard a
+    reduce-scatter, Replicate → Shard a local slice). It is DTensor's own
+    redistribution, so autograd carries it and ``launch.cost`` counts it.
+    ``grad`` is the placement of the result's gradient: by default ``dst``,
+    except that a replicated result is taken as ``Partial``, each rank using its
+    copy for its own share of the work; pass ``Replicate()`` where every rank
+    computes the same thing from it."""
+    sub = mesh[MODEL_AXIS]
+    if grad is None:
+        grad = Partial() if dst.is_replicate() else dst
+    return DTensor.from_local(t, sub, [src], run_check=False).redistribute(
+        sub, [dst]).to_local(grad_placements=[grad])
+
+
+def local_weight(w: torch.Tensor, x: DTensor) -> torch.Tensor:
+    """This rank's "model" shard of the weight ``w`` (the reference's spec
+    places it), gathered over every other mesh dim (FSDP's "data"), as a plain
+    tensor for computing on the rank's shard of ``x``. A weight not sharded
+    over "model" comes whole (:func:`whole_weight`). The gradient keeps the
+    shard over "model" and is a sum over the ranks that hold other shards of
+    ``x`` elsewhere."""
+    mesh = x.device_mesh
+    i = model_index(mesh)
+    if model_shard_dim(w) is None:
+        return whole_weight(w, x)
+    keep = [w.placements[m] if m == i else Replicate() for m in range(mesh.ndim)]
+    grad = [w.placements[m] if m == i else Partial() if pl.is_shard() else Replicate()
+            for m, pl in enumerate(x.placements)]
+    return w.redistribute(mesh, keep).to_local(grad_placements=grad)
 
 
 def weight_local(fn, x: DTensor, w: torch.Tensor, placements) -> DTensor:

@@ -21,13 +21,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.common import (
     dense_init_,
     dtype_of,
-    on_batch_shards,
-    weight_einsum,
+    model_index,
+    model_split,
+    over_model,
     whole_module,
 )
 from repro_torch.sharding.logical import constrain, restored
@@ -50,8 +51,14 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     return torch.where(lower, diff, NEG_INF)
 
 
-def ssd_chunked(x, dt, a, b_mat, c_mat, *, chunk: int, initial_state=None):
-    """Returns (y (B,T,H,P), final_state (B,H,P,N))."""
+def ssd_chunked(x, dt, a, b_mat, c_mat, *, chunk: int, initial_state=None, enter=None):
+    """Returns (y (B,T,H,P), final_state (B,H,P,N)).
+
+    ``enter``, for a block of a longer sequence (one "model" rank's on a
+    mesh), gives the state entering the block: it is called with the block's
+    final state from a zero start and its total decay (B,H), and the block's
+    chunks then take that state into their entering states, their outputs and
+    the final state (``initial_state`` is then the caller's concern)."""
     bsz, t, h, p = x.shape
     n = b_mat.shape[-1]
     if t % chunk:
@@ -79,7 +86,7 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, *, chunk: int, initial_state=None):
     # 3. Inter-chunk linear recurrence over chunks; emits the state ENTERING
     # each chunk.
     chunk_decay = torch.exp(la_cs[..., -1])                      # (B,H,C)
-    state = (initial_state.float() if initial_state is not None
+    state = (initial_state.float() if initial_state is not None and enter is None
              else torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device))
     state = constrain(state, "batch", None, None, None)
     prev = []
@@ -87,6 +94,16 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, *, chunk: int, initial_state=None):
         prev.append(state)
         state = state * chunk_decay[:, :, i, None, None] + states[:, i]
     prev_states = torch.stack(prev, dim=1)                       # (B,C,H,P,N)
+    if enter is not None:
+        # The entering state s decays through the earlier chunks of the block
+        # into each chunk's entering state, and through all of them into the
+        # final state.
+        la_chunk = la_cs[..., -1]                                # (B,H,C)
+        through = torch.exp(torch.cumsum(la_chunk, dim=-1) - la_chunk)
+        total = torch.exp(la_chunk.sum(-1))                      # (B,H)
+        s_in = enter(state, total)                               # (B,H,P,N)
+        prev_states = prev_states + s_in[:, None] * through.permute(0, 2, 1)[..., None, None]
+        state = state + s_in * total[..., None, None]
 
     # 4. State → output within each chunk.
     state_decay_out = torch.exp(la_cs)                           # (B,H,C,L)
@@ -159,10 +176,12 @@ class Mamba(nn.Module):
         dense_init_(self.out_proj, gen, 0)
 
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over time. xbc (B,T,CH); w (K,CH)."""
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 halo: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv over time. xbc (B,T,CH); w (K,CH). ``halo``
+    (B,K-1,CH) holds the K-1 inputs before the first (zeros when None)."""
     k = w.shape[0]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    pad = F.pad(xbc, (0, 0, k - 1, 0)) if halo is None else torch.cat([halo, xbc], dim=1)
     out = torch.zeros_like(xbc)
     for i in range(k):  # K=4: shifted adds
         out = out + pad[:, i: i + xbc.shape[1], :] * w[i][None, None, :]
@@ -189,26 +208,25 @@ def _gated_rmsnorm(y, z, scale, dtype):
 
 def apply_mamba(cfg, p: Mamba, u: torch.Tensor, *, initial_state=None, return_state=False):
     """u: (B, T, d_model) → (B, T, d_model) [, final ssd state (B, H, P, N)]."""
-    return _mixer(cfg, p, u, initial_state=initial_state, return_state=return_state)
+    if isinstance(u, DTensor):
+        return _mixer_on_mesh(cfg, p, u, initial_state=initial_state, return_state=return_state)
+    out, final_state = _mixer(cfg, p, u, initial_state=initial_state)
+    return (out, final_state) if return_state else out
 
 
-# On a mesh the mixer runs on each rank's batch shard with the whole
-# sequence and the whole weights; the initial state comes in and the final
-# state goes out with the same batch sharding. The causal conv and the
-# chunked scan run along the sequence, and torch 2.11's DTensor cannot pad a
-# sharded sequence (``aten.constant_pad_nd``).
-@on_batch_shards
-def _mixer(cfg, p: Mamba, u: torch.Tensor, *, initial_state=None, return_state=False):
-    bsz, t, _ = u.shape
-    d_in, h, n, conv_ch = _dims(cfg)
-    proj = weight_einsum("btd,de->bte", u, p.in_proj.to(u.dtype))
+def _in_proj(cfg, p, u):
+    """u (B,T,D) → z (B,T,d_in), the conv inputs [x, B, C] (B,T,CH), raw dt (B,T,H)."""
+    proj = torch.einsum("btd,de->bte", u, p.in_proj.to(u.dtype))
     z, xc, bm, cm, dt_raw = _split_in(cfg, proj)
+    return z, torch.cat([xc, bm, cm], dim=-1), dt_raw
 
-    xbc = _causal_conv(torch.cat([xc, bm, cm], dim=-1), p.conv_w.to(u.dtype),
-                       p.conv_b.to(u.dtype))
-    xbc = F.silu(xbc)
-    xc, bm, cm = torch.split(xbc, [d_in, n, n], dim=-1)
 
+def _ssm(cfg, p, xbc, dt_raw, dtype, *, initial_state=None, enter=None):
+    """The conv's output (B,T,CH), after its SiLU, and raw dt → the SSD's
+    output with the D skip (B,T,d_in), final state."""
+    bsz, t, _ = xbc.shape
+    d_in, h, n, _ = _dims(cfg)
+    xc, bm, cm = torch.split(F.silu(xbc), [d_in, n, n], dim=-1)
     x = xc.reshape(bsz, t, h, cfg.ssm_head_dim)
     dt = _softplus(dt_raw.float() + p.dt_bias)
     a = -torch.exp(p.A_log)
@@ -223,17 +241,95 @@ def _mixer(cfg, p: Mamba, u: torch.Tensor, *, initial_state=None, return_state=F
         bm = F.pad(bm, (0, 0, 0, pad))
         cm = F.pad(cm, (0, 0, 0, pad))
     y, final_state = ssd_chunked(x, dt, a, bm.float(), cm.float(), chunk=chunk,
-                                 initial_state=initial_state)
+                                 initial_state=initial_state, enter=enter)
     if pad:
         y = y[:, :t]
         x = x[:, :t]
     y = y + x * p.D[None, None, :, None].to(x.dtype)
-    y = y.reshape(bsz, t, d_in)
-    y = _gated_rmsnorm(y, z, p.gate_norm, u.dtype)
-    out = weight_einsum("bte,ed->btd", y, p.out_proj.to(u.dtype))
-    if return_state:
-        return out, final_state
-    return out
+    return y.reshape(bsz, t, d_in), final_state
+
+
+def _out_proj(p, y, z, dtype):
+    y = _gated_rmsnorm(y, z, p.gate_norm, dtype)
+    return torch.einsum("bte,ed->btd", y, p.out_proj.to(dtype))
+
+
+def _mixer(cfg, p: Mamba, u: torch.Tensor, *, initial_state=None):
+    """The mixer on one device: (out, final state)."""
+    z, xbc, dt_raw = _in_proj(cfg, p, u)
+    xbc = _causal_conv(xbc, p.conv_w.to(u.dtype), p.conv_b.to(u.dtype))
+    y, final_state = _ssm(cfg, p, xbc, dt_raw, u.dtype, initial_state=initial_state)
+    return _out_proj(p, y, z, u.dtype), final_state
+
+
+def _mixer_on_mesh(cfg, p: Mamba, u: DTensor, *, initial_state=None, return_state=False):
+    """The mixer on a mesh, sequence-parallel over "model" as the reference's
+    partitioned program runs it (the SSD's chunk axis over "seq"): each rank
+    projects its own tokens; the causal conv takes its K-1-row halo from the
+    previous "model" rank; the SSD runs the rank's chunks from a zero state,
+    and an all-gather of each rank's (final state, total decay) gives the
+    state entering the rank's block (``initial_state`` decayed through the
+    earlier ranks plus their states). Where the rank's block is not a whole
+    number of chunks (the reference's ``constrain`` then leaves the chunk axis
+    unsharded) the conv and the SSD run on the gathered sequence and each rank
+    keeps its block. Weights are whole (the reference keeps them replicated
+    over "model"); the final state comes out replicated over "model"."""
+    mesh = u.device_mesh
+    split = model_split(u)
+    pm = whole_module(p, u)
+    batch_pl = [pl if pl.is_shard(0) else Replicate() for pl in u.placements]
+    s0 = initial_state
+    if isinstance(s0, DTensor):
+        s0 = constrain(s0, "batch", None, None, None)
+        # Each "model" rank takes it into its own block's states.
+        s0 = s0.to_local(grad_placements=[Partial() if split and i == model_index(mesh) else pl
+                                          for i, pl in enumerate(s0.placements)])
+    k = cfg.ssm_conv
+    with restored(None):
+        z, xbc, dt_raw = _in_proj(cfg, pm, u.to_local())
+        t_loc = xbc.shape[1]
+        chunk = min(cfg.ssm_chunk, u.shape[1])
+        w, b = pm.conv_w.to(u.dtype), pm.conv_b.to(u.dtype)
+        if split is not None and t_loc % chunk == 0 and t_loc >= k - 1:
+            rank, ranks = split
+            tails = over_model(xbc[None, :, t_loc - (k - 1):], mesh, Shard(0), Replicate())
+            halo = tails[rank - 1] * float(rank > 0)     # rank 0: zeros
+            xbc = _causal_conv(xbc, w, b, halo)
+
+            def enter(state, decay):
+                # Every rank's (state from zero, total decay), then the state
+                # entering each rank: s_{r+1} = s_r · decay_r + state_r.
+                bsz, h, hp, n = state.shape
+                both = torch.cat([state.reshape(bsz, h, hp * n), decay[..., None]], dim=-1)
+                every = over_model(both[None], mesh, Shard(0), Replicate())
+                # Every rank takes each rank's term, masked (so that each
+                # rank's backward pass runs the all-gather's, as collectives
+                # must), and keeps its own.
+                s = s0.float() if s0 is not None else torch.zeros_like(state)
+                mine = torch.zeros_like(state)
+                for r in range(ranks):
+                    mine = mine + s * float(r == rank)
+                    s = s * every[r, ..., -1, None, None] + every[r, ..., :-1].reshape(state.shape)
+                return mine
+            y, final_state = _ssm(cfg, pm, xbc, dt_raw, u.dtype, enter=enter)
+        else:
+            if split is not None:   # the gathered sequence; each rank keeps its block
+                xbc = over_model(xbc, mesh, Shard(1), Replicate())
+                dt_raw = over_model(dt_raw, mesh, Shard(1), Replicate())
+            xbc = _causal_conv(xbc, w, b)
+            y, final_state = _ssm(cfg, pm, xbc, dt_raw, u.dtype, initial_state=s0)
+            if split is not None:
+                y = y[:, split[0] * t_loc:(split[0] + 1) * t_loc]
+        out = DTensor.from_local(_out_proj(pm, y, z, u.dtype), mesh, u.placements,
+                                 run_check=False)
+    if not return_state:
+        return out
+    if split is None:
+        return out, DTensor.from_local(final_state, mesh, batch_pl, run_check=False)
+    # The last rank's final state is the sequence's; the others add zeros.
+    last = final_state * float(split[0] == split[1] - 1)
+    pl = [Partial() if i == model_index(mesh) else q for i, q in enumerate(batch_pl)]
+    return out, DTensor.from_local(last, mesh, pl, run_check=False).redistribute(mesh, batch_pl)
 
 
 def init_mamba_cache(cfg, batch: int, dtype, device=None) -> dict:

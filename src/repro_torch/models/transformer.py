@@ -31,6 +31,7 @@ torch's indexing asks for it, with equal values.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import Any
 
 import torch
@@ -52,8 +53,10 @@ from repro_torch.models.common import (
     dtype_of,
     embed_init_,
     init_module,
-    on_batch_shards,
+    model_split,
+    over_model,
     remat_call,
+    whole_weight,
 )
 from repro_torch.models.layers import (
     MLP,
@@ -343,14 +346,25 @@ def _attn_decode(cfg, p, h1, pos, cache, window):
     return output_proj(p, y)
 
 
-@on_batch_shards
 def _conv_tail(cfg, pm, h):
-    """Last K-1 conv inputs (for decode continuation after prefill); on a
-    mesh, of each rank's batch rows."""
-    proj = torch.einsum("btd,de->bte", h, pm.in_proj.to(h.dtype))
-    _, xc, bm, cm, _ = ssm_mod._split_in(cfg, proj)
-    xbc = torch.cat([xc, bm, cm], dim=-1)
-    return xbc[:, -(cfg.ssm_conv - 1):, :]
+    """The last K-1 conv inputs (for decode continuation after prefill): the
+    in_proj of the last K-1 positions only. On a mesh each "model" rank
+    projects its own last rows, and an all-gather over "model" gives every
+    rank the sequence's last K-1 (those of the last rank, or of several when
+    a rank holds fewer), for its batch rows."""
+    rows = cfg.ssm_conv - 1
+    if not isinstance(h, DTensor):
+        return ssm_mod._in_proj(cfg, pm, h[:, -rows:])[1]
+    mesh, split = h.device_mesh, model_split(h)
+    w = SimpleNamespace(in_proj=whole_weight(pm.in_proj, h))
+    with restored(None):
+        tail = ssm_mod._in_proj(cfg, w, h.to_local()[:, -rows:])[1]
+        if split is not None:
+            # Every rank keeps the gathered tails whole: its gradient is its own.
+            tails = over_model(tail[None], mesh, Shard(0), Replicate(), grad=Replicate())
+            tail = tails.transpose(0, 1).reshape(tail.shape[0], -1, tail.shape[2])[:, -rows:]
+    return DTensor.from_local(tail, mesh, [p if p.is_shard(0) else Replicate()
+                                           for p in h.placements], run_check=False)
 
 
 def apply_layer_prefill(cfg, kind, p, x, positions, window, s_cache, aux, *, chunk=1024):
