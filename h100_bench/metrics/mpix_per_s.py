@@ -1,0 +1,3 @@
+"""mpix_per_s: features-4096-resident's input megapixels a second (readers.mpix_per_s)."""
+
+from h100_bench.readers import mpix_per_s as read  # noqa: F401
