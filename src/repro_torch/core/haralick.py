@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.obs import trace as _obs_trace
+
 __all__ = ["haralick_features", "FEATURE_NAMES", "normalize_glcm"]
 
 FEATURE_NAMES = (
@@ -149,9 +151,12 @@ def _features(p: torch.Tensor, select: tuple[int, ...]) -> torch.Tensor:
         )
         gram = a_mat @ a_mat.transpose(-1, -2)
         chunk = max(1, EIG_CHUNK_ELEMENTS // (L * L))
-        second = torch.cat(  # second-largest eigenvalue (eigvalsh ascends)
-            [torch.linalg.eigvalsh(g)[:, -2] for g in gram.split(chunk)]
-        )
+        # eigvalsh reads its error code back, so on the card this span is
+        # also the host's wait for the work queued before it.
+        with _obs_trace.get_tracer().span("haralick.eigvalsh", matrices=n):
+            second = torch.cat(  # second-largest eigenvalue (eigvalsh ascends)
+                [torch.linalg.eigvalsh(g)[:, -2] for g in gram.split(chunk)]
+            )
         feats.append(torch.sqrt(second.clamp_min(0.0)))
 
     return torch.stack([feats[k] for k in select], dim=-1)

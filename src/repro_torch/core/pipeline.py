@@ -23,6 +23,16 @@ images into fixed (B, H, W) stacks, one plan call each; results are still
 yielded per image, in order, and the final partial stack is padded (its
 padding results dropped) so that one shape is ever compiled.
 ``coalesce_images`` is the grouping helper.
+
+Tracing: with the global tracer live (``repro_torch.obs.trace.get_tracer``,
+read when a stream starts), each stack records a ``pipeline.coalesce`` span
+around its ``np.stack`` (``images``); on the card each item copied from the
+host records a ``pipeline.stage`` span around its copy into pinned memory,
+the wait for the slot's previous copy included (``bytes``), and each result
+a ``pipeline.join`` span around the wait for it: the host waiting on the
+card. The plan call under them records its own ``plan.*`` spans. No span
+synchronizes the device beyond what the stream already does; off, each is
+the tracer's shared no-op.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import torch
 from repro_torch.core.plan import compile_plan, resolve_device
 from repro_torch.core.schemes import PAPER_PAIRS
 from repro_torch.core.spec import GLCMSpec
+from repro_torch.obs.trace import get_tracer
 
 __all__ = ["GLCMStream", "glcm_feature_stream", "coalesce_images", "pad_stack"]
 
@@ -67,14 +78,19 @@ def coalesce_images(
     """
     if batch_size < 1:
         raise ValueError("batch_size must be >= 1")
+    tr = get_tracer()
     buf: list[np.ndarray] = []
     for im in images:
         buf.append(np.asarray(im))
         if len(buf) == batch_size:
-            yield np.stack(buf), batch_size
+            with tr.span("pipeline.coalesce", images=batch_size):
+                stack = np.stack(buf)
+            yield stack, batch_size
             buf = []
     if buf:
-        yield pad_stack(buf, batch_size)
+        with tr.span("pipeline.coalesce", images=len(buf)):
+            padded = pad_stack(buf, batch_size)
+        yield padded
 
 
 class _Staging:
@@ -130,6 +146,7 @@ class GLCMStream:
 
     def _cuda(self, images) -> Iterator[Any]:
         dev = self.device
+        tr = get_tracer()
         compute = torch.cuda.current_stream(dev)
         copy = torch.cuda.Stream(dev)
         slots = [_Staging() for _ in range(self.prefetch)]
@@ -147,7 +164,9 @@ class GLCMStream:
                 x = item
             else:
                 slot = slots[count % self.prefetch]
-                host = slot.fill(np.asarray(item))
+                item = np.asarray(item)
+                with tr.span("pipeline.stage", bytes=item.nbytes):
+                    host = slot.fill(item)
                 with torch.cuda.stream(copy):  # the paper's copyStream
                     x = torch.empty(host.shape, dtype=host.dtype, device=dev)
                     x.copy_(host, non_blocking=True)
@@ -171,7 +190,8 @@ class GLCMStream:
                 break
         while queue:
             out, done = queue.popleft()
-            done.synchronize()  # the join point: the oldest result only
+            with tr.span("pipeline.join"):
+                done.synchronize()  # the join point: the oldest result only
             enqueue()
             yield out
 

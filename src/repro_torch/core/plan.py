@@ -59,7 +59,18 @@ Observability, as in the reference: every lookup counts into
 registry (:mod:`repro_torch.obs.metrics`); a miss observes the plan's build
 time in ``repro_plan_compile_ms`` and, with a live tracer, records a
 ``plan.compile`` span; a hit records a ``plan.cache_hit`` event. Batch and
-temporal plans alike. ``bucket_sizes`` / ``pick_bucket`` give a batched
+temporal plans alike. Beyond the reference, each call of a batch plan
+records, with the global tracer live at call time (:func:`~repro_torch.obs.
+trace.get_tracer`), a ``plan.run`` span (``batch``, ``scheme``) with three
+children in order: ``plan.prepare`` (the range reduction, quantization or
+cast), ``plan.count`` (the backend's count; on a host-native backend also
+the copy of the counts to the device) and ``plan.tail`` (symmetric,
+normalize, Haralick features; ``matrices``), inside which f14's eigensolver
+records ``haralick.eigvalsh``. They are host times: no span synchronizes
+the device, so on the card a span ends once its work is enqueued, or when
+one of its own ops waited for the device, as eigvalsh does. Under
+``torch.profiler`` each is also a profiler range. Off, each costs the
+tracer's shared no-op. ``bucket_sizes`` / ``pick_bucket`` give a batched
 server's launch stack sizes.
 
 ``check="lint"`` (or ``REPRO_PLAN_LINT=1``) runs the plan-contract
@@ -517,31 +528,45 @@ def compile_plan(
         plan = _cache_put(key, plan)
         return _ensure_linted(plan) if check == "lint" else plan
 
+    n_batch = shape[0] if batched else 1
+    n_mats = n_batch * math.prod(grid) * len(resolved.pairs)  # the tail's matrices
+
     def run(img) -> torch.Tensor:
-        x = as_input(img)
-        stack, qargs = prepare(x if batched else x[None])
-        mats = tail(_backends.compute_regions(backend, stack, resolved, quant=qargs))
+        tr = _obs_trace.get_tracer()
+        with tr.span("plan.run", batch=n_batch, scheme=resolved.scheme):
+            x = as_input(img)
+            with tr.span("plan.prepare"):
+                stack, qargs = prepare(x if batched else x[None])
+            with tr.span("plan.count"):
+                counts = _backends.compute_regions(backend, stack, resolved, quant=qargs)
+            with tr.span("plan.tail", matrices=n_mats):
+                mats = tail(counts)
         return mats if batched else mats[0]
 
     def run_host(img) -> torch.Tensor:
         # NumPy counts on the host, the analyzer's "host" scope; only the
         # tail runs on the plan's device.
-        with scope("host"):
-            x = img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
-            if tuple(x.shape) != shape:
-                raise ValueError(f"plan compiled for shape {shape}, got {tuple(x.shape)}")
-            stack = x if batched else x[None]
-            qargs = None
-            if fused:
-                identity = x.dtype == np.uint8 and is_identity_quantize(
-                    torch.uint8, resolved.levels, vmin, vmax)
-                if not identity:  # else the values already are the levels
-                    qargs = _native.uniform_params_np(stack, vmin, vmax)
-            elif quant is not None:
-                stack = torch.stack([quant(im) for im in torch.from_numpy(stack)]).numpy()
-            counts = backend.host_fn(stack, resolved, qargs)
-            mats = torch.from_numpy(np.asarray(counts, np.int32)).to(device)
-        mats = tail(mats)
+        tr = _obs_trace.get_tracer()
+        with tr.span("plan.run", batch=n_batch, scheme=resolved.scheme):
+            with scope("host"):
+                x = img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
+                if tuple(x.shape) != shape:
+                    raise ValueError(f"plan compiled for shape {shape}, got {tuple(x.shape)}")
+                with tr.span("plan.prepare"):
+                    stack = x if batched else x[None]
+                    qargs = None
+                    if fused:
+                        identity = x.dtype == np.uint8 and is_identity_quantize(
+                            torch.uint8, resolved.levels, vmin, vmax)
+                        if not identity:  # else the values already are the levels
+                            qargs = _native.uniform_params_np(stack, vmin, vmax)
+                    elif quant is not None:
+                        stack = torch.stack([quant(im) for im in torch.from_numpy(stack)]).numpy()
+                with tr.span("plan.count"):
+                    counts = backend.host_fn(stack, resolved, qargs)
+                    mats = torch.from_numpy(np.asarray(counts, np.int32)).to(device)
+            with tr.span("plan.tail", matrices=n_mats):
+                mats = tail(mats)
         return mats if batched else mats[0]
 
     host = backend.caps.host_native

@@ -7,6 +7,7 @@ traces of either package (one format, ``repro-trace-v1``).
     PYTHONPATH=src python -m repro_torch.obs.report trace.json --chrome out.json
     PYTHONPATH=src python -m repro_torch.obs.report trace.json --validate
     PYTHONPATH=src python -m repro_torch.obs.report trace.json --request 42
+    PYTHONPATH=src python -m repro_torch.obs.report trace.json --chrome out.json --onto prof.json
 
 Reads either format — the native ``repro-trace-v1`` JSON written by
 :meth:`Tracer.save`, or Chrome ``trace_event`` JSON written by
@@ -22,6 +23,12 @@ correlation id — queue wait, padding, launch, readback.
 non-negative consistent ts/dur, matched ``b``/``e`` and balanced ``B``/
 ``E`` pairs, ``X`` events carrying ``dur``) and exits nonzero on
 problems — ``chip_smoke.py``'s serve phase checks its trace this way.
+With ``--onto PROF``, ``--chrome`` writes the Chrome trace that
+``torch.profiler`` exported (``export_chrome_trace``) with the native
+trace's spans added on the profiler's clock, through the trace's
+``clock_anchor`` (:mod:`repro_torch.obs.trace`): the spans recorded after
+the fact, such as the engine's request trees, then sit beside the device
+work of the same moments in one Perfetto timeline.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import dataclasses
 import json
 import sys
 
-__all__ = ["load_trace", "summarize", "validate_chrome"]
+__all__ = ["load_trace", "onto_profile", "summarize", "validate_chrome"]
 
 
 @dataclasses.dataclass
@@ -144,6 +151,29 @@ def chrome_from_native(doc: dict) -> dict:
             corr=s.corr, attrs=s.attrs, instant=s.instant,
         ))
     return tr.to_chrome()
+
+
+def onto_profile(doc: dict, profile: dict) -> dict:
+    """``torch.profiler``'s Chrome trace ``profile`` (``ts`` in µs after its
+    ``baseTimeNanoseconds``) with the spans of the native document ``doc``
+    added as a process of their own, moved onto the profiler's clock by
+    ``doc``'s ``clock_anchor``."""
+    native = isinstance(doc, dict) and doc.get("format") == "repro-trace-v1"
+    anchor = doc.get("clock_anchor") if native else None
+    if anchor is None:
+        raise ValueError("only a native trace with a clock_anchor (a tracer on "
+                         "time.monotonic or time.perf_counter) has the profiler's clock")
+    events = profile["traceEvents"]
+    shift = (anchor["unix_ns"] - int(profile.get("baseTimeNanoseconds", 0))) / 1e3
+    shift -= anchor["ts_us"]
+    pid = 1 + max((e["pid"] for e in events if isinstance(e.get("pid"), int)), default=0)
+    ours = []
+    for ev in chrome_from_native(doc)["traceEvents"]:
+        ev["pid"] = pid
+        if ev["ph"] != "M":
+            ev["ts"] = round(ev["ts"] + shift, 3)
+        ours.append(ev)
+    return {**profile, "traceEvents": events + ours}
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +382,9 @@ def main(argv=None) -> int:
     ap.add_argument("trace", help="native repro-trace-v1 or Chrome trace JSON")
     ap.add_argument("--chrome", metavar="OUT",
                     help="convert to Chrome trace JSON at OUT and exit")
+    ap.add_argument("--onto", metavar="PROF",
+                    help="with --chrome: add the trace's spans to torch.profiler's "
+                         "Chrome trace PROF, on its clock")
     ap.add_argument("--validate", action="store_true",
                     help="structurally validate Chrome trace JSON; exit 1 on problems")
     ap.add_argument("--top", type=int, default=10,
@@ -377,7 +410,15 @@ def main(argv=None) -> int:
         return 0
 
     if args.chrome:
-        if isinstance(doc, dict) and doc.get("format") == "repro-trace-v1":
+        if args.onto:
+            with open(args.onto) as fh:
+                profile = json.load(fh)
+            try:
+                chrome = onto_profile(doc, profile)
+            except ValueError as exc:
+                print(f"{args.trace}: {exc}", file=sys.stderr)
+                return 2
+        elif isinstance(doc, dict) and doc.get("format") == "repro-trace-v1":
             chrome = chrome_from_native(doc)
         elif isinstance(doc, (dict, list)) and (
                 isinstance(doc, list) or "traceEvents" in doc):

@@ -1,8 +1,9 @@
 """Thread-safe span tracer with Chrome ``trace_event`` export.
 
-Counterpart of ``repro.obs.trace``, standard library only. The port's global
-tracer is its own, apart from the reference's, and is switched on by the
-same ``REPRO_TRACE=1``.
+Counterpart of ``repro.obs.trace``. The port's global tracer is its own,
+apart from the reference's, and is switched on by the same ``REPRO_TRACE=1``.
+The module imports only the standard library; it reaches torch (see
+"One clock with the device trace" below) only once torch is loaded.
 
 A :class:`Tracer` records **spans** — named intervals with attributes —
 into a bounded ring buffer.  Spans come from two sources:
@@ -33,6 +34,28 @@ The clock is injectable (``Tracer(clock=...)``) and must be monotonic;
 everything downstream (export, report) works in relative time, so a
 virtual warp clock (``chip_smoke.py``'s replay) traces exactly like
 ``time.monotonic``.
+
+**One clock with the device trace.**  ``torch.profiler`` stamps its events
+in Unix nanoseconds; the tracer's clock is monotonic.  Two things tie them:
+
+* While a torch profiler records, every live ``span()`` of an enabled
+  tracer also opens a profiler range of the same name (torch's
+  ``_RecordFunctionFast``, its cheapest range), so the profiler's timeline
+  shows the program's spans beside the aten ops and kernels they issued.
+  The check costs nothing when tracing is off (``span()`` returns the no-op
+  first) and looks torch up in ``sys.modules``: a process that never loaded
+  torch has no profiler to mirror into, and this module never imports it.
+* Spans recorded after the fact (``add_span``: the engine's request tree,
+  ``plan.compile``, ``autotune.*``) get no range; instead a tracer on
+  ``time.monotonic`` or ``time.perf_counter`` keeps one anchor pair read back
+  to back when it is built, ``anchor = (time.time_ns(), clock())``, so any
+  tracer time ``t`` is Unix ns ``anchor[0] + (t - anchor[1]) * 1e9``.
+  ``to_dict()`` exports it as ``clock_anchor``: ``unix_ns`` and the anchor's
+  ``ts_us`` on the document's own relative timeline; ``python -m
+  repro_torch.obs.report trace.json --chrome OUT --onto PROF`` reads it to
+  add the trace's spans to a profiler's Chrome export.  A tracer on any
+  other (injected, possibly virtual) clock has ``anchor = None`` and exports
+  no ``clock_anchor``.
 """
 
 from __future__ import annotations
@@ -41,6 +64,7 @@ import dataclasses
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 
@@ -85,11 +109,25 @@ class _NoopSpan:
 
 _NOOP = _NoopSpan()
 
+# Clocks whose relation to Unix time a tracer can anchor (see the docstring).
+_ANCHORED_CLOCKS = (time.monotonic, time.perf_counter)
+
+
+def _profiler_range(name: str):
+    """An open torch profiler range named ``name`` while a profiler records
+    in this process, else None."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return None
+    rng = torch._C._profiler._RecordFunctionFast(name)
+    rng.__enter__()
+    return rng
+
 
 class _LiveSpan:
     """Context-manager handle for one open span of an enabled tracer."""
 
-    __slots__ = ("_tr", "name", "attrs", "id", "parent", "t0")
+    __slots__ = ("_tr", "name", "attrs", "id", "parent", "t0", "_range")
 
     def __init__(self, tracer: Tracer, name: str, attrs: dict):
         self._tr = tracer
@@ -101,6 +139,7 @@ class _LiveSpan:
         stack = tr._stack()
         self.parent = stack[-1] if stack else None
         self.id = next(tr._ids)
+        self._range = _profiler_range(self.name)
         self.t0 = tr.clock()
         stack.append(self.id)
         return self
@@ -108,6 +147,8 @@ class _LiveSpan:
     def __exit__(self, etype, evalue, tb):
         tr = self._tr
         t1 = tr.clock()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         stack = tr._stack()
         if self.id in stack:
             # pop through self: un-exited inner ids (generator spans that
@@ -132,7 +173,9 @@ class Tracer:
 
     ``capacity`` bounds retained spans (oldest dropped first — a
     long-lived server cannot leak trace memory); ``clock`` is any
-    monotonic ``() -> float`` seconds source.
+    monotonic ``() -> float`` seconds source. ``anchor`` is the
+    ``(unix_ns, clock seconds)`` pair of a ``time.monotonic`` or
+    ``time.perf_counter`` clock, else None.
     """
 
     def __init__(self, *, enabled: bool = False, clock=time.monotonic,
@@ -141,6 +184,7 @@ class Tracer:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.enabled = bool(enabled)
         self.clock = clock
+        self.anchor = (time.time_ns(), clock()) if clock in _ANCHORED_CLOCKS else None
         self.capacity = int(capacity)
         self._buf: list[Span] = []
         self._head = 0                      # ring insertion point
@@ -221,10 +265,11 @@ class Tracer:
     # -- export ------------------------------------------------------------
 
     def to_dict(self) -> dict:
-        """The native trace document (µs, relative to the earliest span)."""
+        """The native trace document (µs, relative to the earliest span),
+        with ``clock_anchor`` when the tracer has an anchor."""
         spans = self.spans()
         base = min((s.t0 for s in spans), default=0.0)
-        return {
+        doc = {
             "format": "repro-trace-v1",
             "dropped": self.dropped,
             "spans": [
@@ -238,6 +283,10 @@ class Tracer:
                 for s in spans
             ],
         }
+        if self.anchor is not None:
+            unix_ns, t = self.anchor
+            doc["clock_anchor"] = {"unix_ns": unix_ns, "ts_us": round((t - base) * 1e6, 3)}
+        return doc
 
     def save(self, path: str) -> None:
         """Write the native trace JSON (``repro_torch.obs.report`` reads it and

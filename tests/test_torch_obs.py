@@ -160,6 +160,111 @@ def test_set_tracer_swaps_global_and_returns_previous():
 
 
 # ---------------------------------------------------------------------------
+# tracer: one clock with torch.profiler
+# ---------------------------------------------------------------------------
+
+
+def _host_ranges(prof, name):
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.name() == name and e.device_type() != torch.autograd.DeviceType.CUDA]
+
+
+def test_live_span_is_a_profiler_range_on_the_anchored_unix_clock():
+    """Under torch.profiler a live span opens a host range of its name, and
+    the tracer's anchor puts the span within 1 ms of that range's start and
+    end in Unix ns, the profiler's clock."""
+    tr = Tracer(enabled=True)
+    unix_ns, t_anchor = tr.anchor
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tr.span("plan.outer"):
+            with tr.span("plan.inner", k=1):
+                time.sleep(0.005)
+    (outer,) = _host_ranges(prof, "plan.outer")
+    (inner,) = _host_ranges(prof, "plan.inner")
+    spans = {s.name: s for s in tr.spans()}
+    for rng, sp in ((outer, spans["plan.outer"]), (inner, spans["plan.inner"])):
+        t0_ns = unix_ns + (sp.t0 - t_anchor) * 1e9
+        t1_ns = unix_ns + (sp.t1 - t_anchor) * 1e9
+        assert abs(t0_ns - rng.start_ns()) < 1e6
+        assert abs(t1_ns - (rng.start_ns() + rng.duration_ns())) < 1e6
+    assert inner.start_ns() >= outer.start_ns()
+    assert spans["plan.inner"].parent == spans["plan.outer"].id
+
+
+def test_spans_open_no_range_without_a_profiler_or_when_disabled():
+    reads = []
+
+    def clock():
+        reads.append(1)
+        return float(len(reads))
+
+    off = Tracer(enabled=False, clock=clock)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with off.span("plan.off"):
+            pass
+    assert _host_ranges(prof, "plan.off") == [] and reads == [] and len(off) == 0
+    live = Tracer(enabled=True, clock=clock)
+    with live.span("plan.unprofiled") as sp:  # no profiler: a plain span
+        assert sp._range is None
+    assert [s.name for s in live.spans()] == ["plan.unprofiled"]
+
+
+@pytest.mark.parametrize("clock,anchored", [
+    (time.monotonic, True), (time.perf_counter, True), (StepClock(), False)])
+def test_clock_anchor_only_on_real_clocks(tmp_path, clock, anchored):
+    """A tracer on time.monotonic or time.perf_counter exports its anchor
+    on the document's timeline; an injected clock exports the keys it
+    always had. obs.report reads both."""
+    tr = Tracer(enabled=True, clock=clock)
+    before = time.time_ns()
+    t = clock()
+    tr.add_span("glcm.request", t, t + 0.002, corr=1)
+    doc = tr.to_dict()
+    if anchored:
+        assert set(doc) == {"format", "dropped", "spans", "clock_anchor"}
+        a = doc["clock_anchor"]
+        span_unix = a["unix_ns"] + (doc["spans"][0]["ts_us"] - a["ts_us"]) * 1e3
+        assert abs(span_unix - before) < 5e6
+    else:
+        assert tr.anchor is None and set(doc) == {"format", "dropped", "spans"}
+    tr.save(str(tmp_path / "t.json"))
+    (rec,) = load_trace(str(tmp_path / "t.json"))
+    assert rec.name == "glcm.request" and rec.dur_us == pytest.approx(2000, rel=1e-3)
+    assert "per-phase breakdown" in treport.summarize([rec])
+
+
+def test_report_puts_a_trace_onto_the_profilers_chrome_trace(tmp_path, capsys):
+    """``obs.report --chrome OUT --onto PROF`` adds the trace's spans to the
+    profiler's export as a process of their own: a live span lands within
+    1 ms of its own profiler range, and a span recorded after the fact keeps
+    its place beside it. A trace without an anchor is refused."""
+    tr = Tracer(enabled=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tr.span("plan.run"):
+            time.sleep(0.005)
+    t = tr.spans()[0].t1
+    tr.add_span("glcm.request", t + 0.002, t + 0.004, corr=7)
+    paths = {k: str(tmp_path / f"{k}.json") for k in ("prof", "trace", "out", "fake")}
+    prof.export_chrome_trace(paths["prof"])
+    tr.save(paths["trace"])
+    assert treport.main([paths["trace"], "--chrome", paths["out"],
+                         "--onto", paths["prof"]]) == 0
+    with open(paths["out"]) as fh:
+        events = json.load(fh)["traceEvents"]
+    (rng,) = [e for e in events if e.get("name") == "plan.run" and e.get("cat") != "span"]
+    (run,) = [e for e in events if e.get("name") == "plan.run" and e.get("cat") == "span"]
+    (req,) = [e for e in events if e.get("name") == "glcm.request" and e["ph"] == "b"]
+    assert run["pid"] == req["pid"] != rng["pid"]
+    assert abs(run["ts"] - rng["ts"]) < 1000
+    assert abs(run["ts"] + run["dur"] - rng["ts"] - rng["dur"]) < 1000
+    assert req["ts"] - (run["ts"] + run["dur"]) == pytest.approx(2000, abs=1)
+    Tracer(enabled=True, clock=StepClock()).save(paths["fake"])
+    assert treport.main([paths["fake"], "--chrome", paths["out"],
+                         "--onto", paths["prof"]]) == 2
+    assert "clock_anchor" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
 # tracer: export formats
 # ---------------------------------------------------------------------------
 

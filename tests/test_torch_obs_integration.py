@@ -19,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.pipeline import glcm_feature_stream
 from repro_torch.core.plan import compile_plan, plan_cache_clear
 from repro_torch.core.spec import GLCMSpec
 from repro_torch.obs import report as obs_report
@@ -296,6 +297,98 @@ def test_plan_lint_still_not_implemented(tracer):
 
 
 # ---------------------------------------------------------------------------
+# spans of the main path: plan calls and the host pipeline
+# ---------------------------------------------------------------------------
+
+# What a batch plan's call records into the global tracer, in order of
+# their ends: f14's eigensolver inside the tail, the tail inside the run.
+PLAN_CALL = ("plan.prepare", "plan.count", "haralick.eigvalsh", "plan.tail", "plan.run")
+MAIN_SPEC = GLCMSpec(levels=8, pairs=((1, 0), (1, 45)), quantize="uniform")
+
+
+def _uint8(n, shape=SHAPE, seed=5):
+    return np.random.default_rng(seed).integers(0, 256, (n, *shape), np.uint8)
+
+
+@pytest.mark.parametrize("shape", [(3, *SHAPE), SHAPE])
+def test_plan_call_records_run_prepare_count_tail(tracer, shape):
+    """A plan call is one ``plan.run`` (batch, scheme) whose children are,
+    in order, ``plan.prepare``, ``plan.count`` and ``plan.tail``
+    (matrices), all inside it; f14's ``haralick.eigvalsh`` (matrices) lies
+    inside the tail."""
+    plan = compile_plan(MAIN_SPEC, shape, features=True, device="cpu")
+    tracer.clear()
+    plan(_uint8(1, shape)[0])
+    spans = tracer.spans()
+    assert tuple(s.name for s in spans) == PLAN_CALL
+    prep, count, eig, tail, run = spans
+    batch = shape[0] if len(shape) == 3 else 1
+    assert run.parent is None and run.attrs == {"batch": batch, "scheme": plan.spec.scheme}
+    assert {s.parent for s in (prep, count, tail)} == {run.id} and eig.parent == tail.id
+    assert prep.attrs == {} and count.attrs == {}
+    assert tail.attrs == eig.attrs == {"matrices": 2 * batch}
+    assert run.t0 <= prep.t0 <= prep.t1 <= count.t0 <= count.t1 <= tail.t0 <= tail.t1 <= run.t1
+    assert tail.t0 <= eig.t0 <= eig.t1 <= tail.t1
+
+
+def test_disabled_tracer_records_no_main_path_span_and_reads_no_clock():
+    """Off, the plan's, the tail's and the pipeline's spans read no clock,
+    record nothing and open no profiler range."""
+    reads = []
+
+    def clock():
+        reads.append(1)
+        return 0.0
+
+    off = Tracer(enabled=False, clock=clock)
+    prev = set_tracer(off)
+    try:
+        plan = compile_plan(MAIN_SPEC, (2, *SHAPE), features=True, device="cpu")
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            plan(_uint8(2))
+            out = list(glcm_feature_stream(list(_uint8(3)), spec=MAIN_SPEC, batch_size=2,
+                                           device="cpu"))
+    finally:
+        set_tracer(prev)
+    assert len(out) == 3 and len(off) == 0 and reads == []
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert not [n for n in names if n.startswith(("plan.", "pipeline.", "haralick."))]
+
+
+def test_feature_stream_records_one_coalesce_a_stack(tracer):
+    """On the CPU the stream stacks and calls the plan: one
+    ``pipeline.coalesce`` and one ``plan.run`` a stack, the last stack
+    padded; there is no staging and no join."""
+    out = list(glcm_feature_stream(list(_uint8(5)), spec=MAIN_SPEC, batch_size=2,
+                                   device="cpu"))
+    assert len(out) == 5
+    by = {}
+    for s in tracer.spans():
+        by.setdefault(s.name, []).append(s)
+    assert [s.attrs["images"] for s in by["pipeline.coalesce"]] == [2, 2, 1]
+    assert [s.attrs["batch"] for s in by["plan.run"]] == [2, 2, 2]
+    assert "pipeline.stage" not in by and "pipeline.join" not in by
+
+
+@pytest.mark.cuda
+def test_feature_stream_on_card_records_stage_and_join_a_stack(tracer):
+    """On the card each stack is also staged into pinned memory and joined:
+    one ``pipeline.stage`` (its bytes) and one ``pipeline.join`` a stack."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    imgs = list(_uint8(6, (96, 80)))
+    out = [o.cpu() for o in glcm_feature_stream(imgs, spec=MAIN_SPEC, batch_size=2)]
+    assert len(out) == 6
+    by = {}
+    for s in tracer.spans():
+        by.setdefault(s.name, []).append(s)
+    assert [s.attrs["images"] for s in by["pipeline.coalesce"]] == [2, 2, 2]
+    assert [s.attrs["bytes"] for s in by["pipeline.stage"]] == [2 * 96 * 80] * 3
+    assert len(by["pipeline.join"]) == 3 and len(by["plan.run"]) == 3
+
+
+# ---------------------------------------------------------------------------
 # report CLI
 # ---------------------------------------------------------------------------
 
@@ -376,7 +469,28 @@ def _replay(engine_cls, cfg, tracer, clock):
     return eng
 
 
+# What the port's plans record into its global tracer: the spans of a plan
+# call, which the reference has not, and the plan cache's, which the
+# reference records into its own global tracer, here left off.
+PORT_ONLY = ("plan.compile", "plan.cache_hit") + PLAN_CALL
+
+
+def _without(doc, names):
+    """``doc`` less the spans named in ``names``, ids and parents
+    renumbered in order from 1."""
+    kept = [s for s in doc["spans"] if s["name"] not in names]
+    new_id = {old: i for i, old in enumerate(sorted(s["id"] for s in kept), 1)}
+    for s in kept:
+        s["id"] = new_id[s["id"]]
+        s["parent"] = new_id[s["parent"]] if s["parent"] is not None else None
+    return {**doc, "spans": kept}
+
+
 def test_engine_traces_and_series_match_reference():
+    """The port's engine, on its tracer installed as the global one (as an
+    engine on the default tracer is), records the reference engine's
+    document plus the spans of ``PORT_ONLY``; without them, every span,
+    attribute and parent link is the reference's."""
     if RefEngine is None:
         pytest.skip("needs JAX to run the reference engine")
     kw = dict(levels=8, image_shape=SHAPE, pairs=((1, 0),), batch_size=2,
@@ -388,8 +502,16 @@ def test_engine_traces_and_series_match_reference():
         registry.clear()
         clock = FakeClock()
         tr = tracer_cls(enabled=True, clock=clock)
-        eng = _replay(engine_cls, cfg, tr, clock)
+        prev = set_tracer(tr) if tracer_cls is Tracer else None
+        try:
+            eng = _replay(engine_cls, cfg, tr, clock)
+        finally:
+            if prev is not None:
+                set_tracer(prev)
         doc = tr.to_dict()
+        if tracer_cls is Tracer:
+            assert {s["name"] for s in doc["spans"]} >= set(PLAN_CALL)
+        doc = _without(doc, PORT_ONLY)
         for s in doc["spans"]:
             s["attrs"].pop("backend", None)  # scheme names are per package
         docs.append(doc)
