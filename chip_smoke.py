@@ -41,7 +41,15 @@ Phases, each printing one JSON line:
    allocation; glcm_window on the smooth and the random texture, each as
    float32 and as its uint8 original, with the uint8 launch's peak
    allocation), the bound of each kernel, glcm_features images/s, windows/s
-   and voxels/s end to end, and the Haralick tail alone.
+   and voxels/s end to end, and the Haralick tail alone. Then ``mcc``:
+   f14's eigensolver (``second_eigenvalue``) against its plain version
+   within 1e-12 on the texture map's 260 100 matrices of the smooth and the
+   random texture, one launch each; its CUDA-event ms beside
+   its bound (float64 operations over 33.5 TFLOP/s against 2.27 GB over the
+   memory rate), the plain version and the chunked ``torch.linalg.eigvalsh``
+   it replaces; a launch allocates only its output. The main path must
+   launch it once each for glcm_features, the texture map and the volumes.
+   ``python3 chip_smoke.py mcc`` builds it and runs this phase alone.
 7. ``histogram``: ``kernels.histogram`` on the 16384² image binned to
    L = 32 (the contended case) and on the random stack[4] binned to
    L = 256, with launch counts, exact against the plain version and
@@ -94,8 +102,9 @@ Phases, each printing one JSON line:
     the main path's untuned plans at the paper's sizes (features-4096,
     glcm-16384, texture-map-4096, volume-2x256x512x512, stream-4096-w16) must
     be clean, and a recorded call of each must show its kernel's launch and
-    no other; each plan's ``repro_plan_lint_ms`` is printed beside the
-    CUDA-event time of one plain call of it. (c) Two scratch backends on the
+    no other (with features, also f14's ``second_eigenvalue``); each plan's
+    ``repro_plan_lint_ms`` is printed beside the CUDA-event time of one
+    plain call of it. (c) Two scratch backends on the
     card must make the lint raise ``PlanContractError`` with exactly their
     rule: one that hands a CUDA tensor to a plain version
     (``device-kernel-launches``), one that calls ``.item()`` on a device
@@ -324,6 +333,11 @@ from repro_torch.kernels.glcm_kernel import (  # noqa: E402
     launch_plan,
 )
 from repro_torch.kernels.histogram_kernel import histogram, histogram_plain  # noqa: E402
+from repro_torch.kernels.mcc_kernel import (  # noqa: E402
+    EIG_CHUNK_ELEMENTS,
+    second_eigenvalue,
+    second_eigenvalue_plain,
+)
 from repro_torch.kernels.ops import default_slab_d, default_tile_h  # noqa: E402
 from repro_torch.launch.mesh import make_compat_mesh, make_host_mesh  # noqa: E402
 from repro_torch.models import build_model, describe  # noqa: E402
@@ -367,11 +381,12 @@ from repro_torch.serve.engine import (  # noqa: E402
 # and binning arithmetic are counted against it).
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 33.5e12  # float64 outside the tensor cores (f14's eigensolver)
 
 LEVELS = 32
 FEATURE_RTOL, FEATURE_ATOL, F14_ATOL = 1e-5, 1e-6, 1e-4
 DEV = torch.device("cuda", 0)
-KERNELS = (glcm_vote, glcm_fused, glcm_window, glcm_volume, histogram)
+KERNELS = (glcm_vote, glcm_fused, glcm_window, glcm_volume, histogram, second_eigenvalue)
 
 # The texture map (benchmarks/texture_map.py's geometry at the paper's size)
 # and the volumes of the main path.
@@ -798,6 +813,10 @@ def phase_main_path(stack: torch.Tensor, big: torch.Tensor, vol: torch.Tensor) -
     vfeats = _drive(out, "volume", lambda: glcm_features(vol, LEVELS, VOLUME_PAIRS, ndim=3))
     vmat = _drive(out, "volume_glcm", lambda: glcm(
         vol[0], LEVELS, theta=VOLUME_DIRECTION, ndim=3, quantize="uniform"))
+    # f14 at L = 32: one launch of its eigensolver a call with features.
+    mcc = {p: out[f"{p}_launches"]["second_eigenvalue"] for p in ("features", "texture", "volume")}
+    require(all(n == 1 for n in mcc.values()),
+            f"second_eigenvalue launched {mcc} times; expected once a call")
     emit({"phase": "main_path", **out,
           "features_shape": list(feats.shape), "glcm_shape": list(mat.shape),
           "texture_shape": list(texture.shape), "tiles_shape": list(tiles.shape),
@@ -996,7 +1015,7 @@ def phase_texture_checks(stack, main) -> dict:
     tplan = compile_plan(tspec, tuple(rnd.shape))
     require(tplan.spec.scheme == "cuda" and not tplan.backend.caps.region_grid,
             f"tiles resolved to {tplan.spec.scheme}")
-    _only(main["texture_launches"], ("glcm_window",), "texture map")
+    _only(main["texture_launches"], ("glcm_window", "second_eigenvalue"), "texture map")
     _only(main["tiles_launches"], ("glcm_vote",), "tiles")
 
     # Window kernel vs plain on the texture map's image and range.
@@ -1045,7 +1064,7 @@ def phase_volume_checks(vol, main) -> dict:
     one_scheme = compile_plan(one, tuple(vol[0].shape)).spec.scheme
     require(scheme == "cuda_volume" and one_scheme == "cuda_volume",
             f"volumes resolved to {scheme}, {one_scheme}")
-    _only(main["volume_launches"], ("glcm_volume",), "volume features")
+    _only(main["volume_launches"], ("glcm_volume", "second_eigenvalue"), "volume features")
     _only(main["volume_glcm_launches"], ("glcm_volume",), "volume glcm")
 
     offsets = DIRECTIONS_3D
@@ -1169,6 +1188,94 @@ def phase_texture_timing(stack, chk) -> dict:
     return t
 
 
+# ---------------------------------------------------------------------------
+# f14's eigensolver (second_eigenvalue)
+# ---------------------------------------------------------------------------
+
+MCC_ATOL = 1e-12  # |delta lambda_2| of the kernel against the plain version
+
+
+def _mcc_inputs(counts: torch.Tensor):
+    """Counts -> normalized float64 P and its marginals, as the tail has them."""
+    p = counts.to(torch.float64)
+    p = p / p.sum(dim=(-2, -1), keepdim=True).clamp_min(1e-12)
+    return p, p.sum(dim=2), p.sum(dim=1)
+
+
+def _mcc_err(p, px, py, what: str) -> float:
+    """Launch once, exactly once, and hold the kernel to the plain version."""
+    before = second_eigenvalue.launches
+    got = second_eigenvalue(p, px, py)
+    require(second_eigenvalue.launches == before + 1, f"{what}: launches")
+    err = float((got - second_eigenvalue_plain(p, px, py)).abs().max())
+    require(err <= MCC_ATOL, f"{what}: |delta lambda_2| {err} > {MCC_ATOL}")
+    return err
+
+
+def phase_mcc(smooth: torch.Tensor, rnd: torch.Tensor) -> dict:
+    """second_eigenvalue against its plain version on the texture map's
+    260 100 matrices of a smooth and a random 4096² image, each in one
+    launch; its CUDA-event ms beside its bound, the plain version (A, G,
+    chunked eigvalsh) and eigvalsh alone on the chunks, there and on 32 of
+    the smooth matrices (a call of features-4096); the allocation of one
+    launch. (The ``cuda`` tests of ``tests/test_torch_kernels.py`` hold it
+    at every L and on edge cases.)"""
+    out = {}
+    spec = GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform", region="window",
+                    region_shape=WINDOW, region_stride=WINDOW_STRIDE)
+    plan = compile_plan(spec, tuple(smooth.shape))
+    chunk = EIG_CHUNK_ELEMENTS // LEVELS**2
+
+    def time_both(name, p, px, py):
+        out[f"{name}_ms"] = cuda_ms(lambda: second_eigenvalue(p, px, py), reps=10)
+        out[f"{name}_plain_ms"] = cuda_ms(lambda: second_eigenvalue_plain(p, px, py), reps=3)
+        a = p / torch.sqrt(px[:, :, None].clamp_min(1e-12) * py[:, None, :].clamp_min(1e-12))
+        gram = a @ a.transpose(-1, -2)
+        del a
+        out[f"{name}_library_ms"] = cuda_ms(
+            lambda: [torch.linalg.eigvalsh(g)[:, -2] for g in gram.split(chunk)], reps=3)
+
+    for name, img in (("smooth", smooth), ("random", rnd)):
+        counts = plan(img)
+        counts = counts + counts.transpose(-1, -2)  # the tail's symmetric GLCMs
+        p, px, py = _mcc_inputs(counts.reshape(-1, LEVELS, LEVELS))
+        del counts
+        out[f"{name}_max_abs_err"] = _mcc_err(p, px, py, f"second_eigenvalue map {name}")
+        time_both(name, p, px, py)
+        if name == "smooth":
+            time_both("batch32", *(t[:32].contiguous() for t in (p, px, py)))
+    n = p.shape[0]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    second_eigenvalue(p, px, py)
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(DEV) - before
+    require(out["peak_bytes"] <= n * 8 + 65536,
+            f"second_eigenvalue allocated {out['peak_bytes']} bytes for an {n * 8}-byte output")
+    L = LEVELS
+    nbytes = n * (L * L + 2 * L + 1) * 8
+    # G (symmetric: its upper triangle), the reduction, 53 bisection steps
+    flop = n * (L * L * (L + 1) + 4 * L**3 / 3 + 3 * L * 53)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / FP64_OPS_PER_S
+    out.update(matrices=n, bytes=nbytes, flop=flop, bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "float64 operations")
+    emit({"phase": "mcc", **out})
+    return out
+
+
+def phase_mcc_alone() -> dict:
+    """``python3 chip_smoke.py mcc``: build haralick_mcc (its ptxas lines),
+    then the phase on the first smooth and the first random texture."""
+    reports = build.build(("haralick_mcc",))
+    emit({"phase": "build", "ptxas": {n: [ln.strip() for ln in r.splitlines()
+                                          if "entry" in ln or "Used" in ln or "spill" in ln]
+                                      for n, r in reports.items()}})
+    smooth = torch.from_numpy(smooth_texture(4096, seed=0).astype(np.float32)).to(DEV)
+    rnd = torch.from_numpy(random_texture(4096, seed=0).astype(np.float32)).to(DEV)
+    return phase_mcc(smooth, rnd)
+
+
 def _volume_index(vol, offsets, quant) -> torch.Tensor:
     """The linearised (volume, k, ref, assoc) index of every in-bounds pair,
     one int64 per pair (about 14 GB at the main path's shape)."""
@@ -1276,7 +1383,8 @@ def phase_temporal(frames_dev) -> dict:
     host_frames = [f for f in frames_dev.cpu().numpy()]
     feats = _drive(out, "stream_features", lambda: torch.stack(list(
         glcm_feature_stream(host_frames, spec=spec, temporal_window=STREAM_WINDOW))))
-    _only(out["stream_features_launches"], ("glcm_fused",), "temporal stream")
+    _only(out["stream_features_launches"], ("glcm_fused", "second_eigenvalue"),
+          "temporal stream")
     require(out["stream_features_launches"]["glcm_fused"] == VIDEO_FRAMES,
             f"temporal stream launched glcm_fused {out['stream_features_launches']} times")
 
@@ -1933,8 +2041,9 @@ def phase_lint() -> dict:
         require(plan.lint == (), f"{name}: lint findings {plan.lint}")
         require(not plan.tuned, f"{name}: the plan is tuned; lint the untuned one")
         record = op_lint.record_plan(plan, dtype)
-        _only(record.launches, (kernel,), f"{name} lint record")
-        require(record.launches[kernel] == 1, f"{name}: {record.launches}")
+        kernels = (kernel, "second_eigenvalue") if features else (kernel,)
+        _only(record.launches, kernels, f"{name} lint record")
+        require(all(record.launches[k] == 1 for k in kernels), f"{name}: {record.launches}")
         if dtype != torch.float32:  # the main path's own input dtype, linted too
             require(op_lint.lint_plan(plan, dtype=dtype) == (),
                     f"{name}: findings on {dtype} input")
@@ -2051,7 +2160,8 @@ def _tune_one(name, spec, features, x, smooth) -> dict:
     got = tuned(x)
     torch.cuda.synchronize()
     counts_run = launches()
-    _only(counts_run, kernels, f"{name}: tuned plan")
+    _only(counts_run, kernels + (("second_eigenvalue",) if features else ()),
+          f"{name}: tuned plan")
     for kernel in kernels:
         require(counts_run[kernel] > 0, f"{name}: tuned plan never launched {kernel}")
     counts = tuned_counts(x)
@@ -3871,8 +3981,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    alone = {"lm": phase_lm, "train": phase_train, "mesh": phase_mesh, "dryrun": phase_dryrun}
-    if len(sys.argv) == 2 and sys.argv[1] in alone:   # an LM phase alone
+    alone = {"lm": phase_lm, "train": phase_train, "mesh": phase_mesh, "dryrun": phase_dryrun,
+             "mcc": phase_mcc_alone}
+    if len(sys.argv) == 2 and sys.argv[1] in alone:   # a phase alone
         timed("device", phase_device)
         timed(sys.argv[1], alone[sys.argv[1]])
         emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
@@ -3892,6 +4003,7 @@ def main() -> int:
     t = timed("timing", phase_timing, stack, big, chk)
     t.update(timed("texture_timing", phase_texture_timing, stack, tchk))
     t.update(timed("volume_timing", phase_volume_timing, vol, vchk))
+    mcc = timed("mcc", phase_mcc, stack[0], stack[4])
     for chk_out in (tchk, vchk):  # free the counts; keep the numbers
         chk_out.pop("counts")
     h = timed("histogram", phase_histogram, stack, big)
@@ -3978,6 +4090,15 @@ def main() -> int:
          "ms": h["histogram_big_ms"], "plain_ms": h["histogram_big_plain_ms"],
          "bound_ms": h["histogram_big_bound_ms"], "bound_by": h["histogram_big_bound_by"],
          "library_ms": h["histogram_big_library_ms"]},
+        # f14's eigensolver on the texture map's 260 100 matrices (smooth);
+        # its library call is the chunked eigvalsh it replaces.
+        {"name": "second_eigenvalue", "route": "cuda",
+         "source": "src/repro_torch/csrc/haralick_mcc.cu", "replaces": None,
+         "launches": main_run["texture_launches"]["second_eigenvalue"],
+         "max_abs_err": max(mcc["smooth_max_abs_err"], mcc["random_max_abs_err"]),
+         "ms": mcc["smooth_ms"], "plain_ms": mcc["smooth_plain_ms"],
+         "bound_ms": mcc["bound_ms"], "bound_by": mcc["bound_by"],
+         "library_ms": mcc["smooth_library_ms"]},
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -249,10 +249,10 @@ def _recorder_self_checks(report: AuditReport, dev: torch.device) -> None:
              "recorder missed the materialized quantized image the pre-quantize "
              "path is known to produce")
     # 2. Selecting max_correlation_coefficient must SHOW the eigh the
-    #    pruning rule forbids elsewhere.
+    #    pruning rule forbids elsewhere (on the card: f14's kernel launch).
     spec = GLCMSpec(levels=8, pairs=((1, 0),), normalize=True, scheme="onehot")
     plan = compile_plan(spec, (24, 20), features=("max_correlation_coefficient",), device=dev)
-    if any("eig" in n for n in op_lint.op_names(op_lint.record_plan(plan, torch.int32))):
+    if op_lint.eigh_ops(op_lint.record_plan(plan, torch.int32)):
         report.self_checks.append("dirty-eigh")
     else:
         fail("onehot", "self-check/dirty-eigh",

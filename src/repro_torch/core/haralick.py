@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import mcc_kernel as _mcc
 from repro_torch.obs import trace as _obs_trace
 
 __all__ = ["haralick_features", "FEATURE_NAMES", "normalize_glcm"]
@@ -45,12 +46,6 @@ FEATURE_NAMES = (
 )
 
 _EPS = 1e-12
-
-# Matrix elements per eigvalsh call for f14. cuSOLVER's batched symmetric
-# eigensolver refuses a batch as large as a texture map's (260 100 float64
-# 32 x 32 matrices: CUSOLVER_STATUS_INVALID_VALUE from its buffer-size query),
-# so the batch is solved in chunks of at most this many elements (128 MiB).
-EIG_CHUNK_ELEMENTS = 1 << 24
 
 
 def normalize_glcm(glcm: torch.Tensor) -> torch.Tensor:
@@ -81,8 +76,8 @@ def _select_indices(select: tuple[str, ...] | None) -> tuple[int, ...]:
 def _features(p: torch.Tensor, select: tuple[int, ...]) -> torch.Tensor:
     """(N, L, L) normalized float64 GLCMs → (N, len(select)) features.
 
-    f1–f13 are O(L²); the O(L³) eigendecomposition of f14 runs only when
-    index 13 is selected.
+    f1–f13 are O(L²); f14's O(L³) eigensolve runs only when index 13 is
+    selected.
     """
     n, L = p.shape[0], p.shape[-1]
     i = torch.arange(L, dtype=p.dtype, device=p.device)
@@ -146,17 +141,18 @@ def _features(p: torch.Tensor, select: tuple[int, ...]) -> torch.Tensor:
     if 13 in select:
         # f14: sqrt of the second-largest eigenvalue of Q, whose spectrum
         # equals that of the symmetric PSD matrix A Aᵀ, A = P/√(px py).
-        a_mat = p / torch.sqrt(
-            px[:, :, None].clamp_min(_EPS) * py[:, None, :].clamp_min(_EPS)
-        )
-        gram = a_mat @ a_mat.transpose(-1, -2)
-        chunk = max(1, EIG_CHUNK_ELEMENTS // (L * L))
-        # eigvalsh reads its error code back, so on the card this span is
-        # also the host's wait for the work queued before it.
-        with _obs_trace.get_tracer().span("haralick.eigvalsh", matrices=n):
-            second = torch.cat(  # second-largest eigenvalue (eigvalsh ascends)
-                [torch.linalg.eigvalsh(g)[:, -2] for g in gram.split(chunk)]
-            )
+        # Up to L = 32 one warp a matrix solves it on the card (the CPU runs
+        # the plain version); wider matrices take the plain version, eigvalsh
+        # in chunks, on either device. On the card eigvalsh reads its error
+        # code back, so there the span is also the host's wait for the work
+        # queued before it; the kernel's launch waits for nothing.
+        kernel = L <= _mcc.MAX_LEVELS
+        solver = "kernel" if kernel and p.device.type == "cuda" else "eigvalsh"
+        with _obs_trace.get_tracer().span("haralick.eigvalsh", matrices=n, solver=solver):
+            if kernel:
+                second = _mcc.second_eigenvalue(p.contiguous(), px, py)
+            else:
+                second = _mcc.second_eigenvalue_plain(p, px, py)
         feats.append(torch.sqrt(second.clamp_min(0.0)))
 
     return torch.stack([feats[k] for k in select], dim=-1)

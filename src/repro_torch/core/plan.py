@@ -66,9 +66,11 @@ children in order: ``plan.prepare`` (the range reduction, quantization or
 cast), ``plan.count`` (the backend's count; on a host-native backend also
 the copy of the counts to the device) and ``plan.tail`` (symmetric,
 normalize, Haralick features; ``matrices``), inside which f14's eigensolver
-records ``haralick.eigvalsh``. They are host times: no span synchronizes
-the device, so on the card a span ends once its work is enqueued, or when
-one of its own ops waited for the device, as eigvalsh does. Under
+records ``haralick.eigvalsh`` (``matrices``, ``solver``: "kernel" where the
+card's kernel solves it, else "eigvalsh"). They are host times: no span
+synchronizes the device, so on the card a span ends once its work is
+enqueued, or when one of its own ops waited for the device, as eigvalsh
+does (f14's kernel launch waits for nothing). Under
 ``torch.profiler`` each is also a profiler range. Off, each costs the
 tracer's shared no-op. ``bucket_sizes`` / ``pick_bucket`` give a batched
 server's launch stack sizes.

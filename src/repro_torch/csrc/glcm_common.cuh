@@ -1,5 +1,6 @@
 // Device helpers shared by the kernels of repro_torch (glcm_fused.cu,
-// glcm_window.cu, glcm_volume.cu, histogram.cu). Each kernel source is its own shared
+// glcm_window.cu, glcm_volume.cu, histogram.cu; haralick_mcc.cu takes
+// device_attr). Each kernel source is its own shared
 // library; this header is compiled into each of them, and
 // kernels/build.py hashes it with every source that includes it.
 

@@ -5,6 +5,8 @@
                     (glcm_window) and the depth-slab volume kernel
                     (glcm_volume), with launch counts
   histogram_kernel  the level-histogram kernel (histogram), with its count
+  mcc_kernel        f14's eigensolver (second_eigenvalue: the second-largest
+                    eigenvalue of each Haralick Q matrix), with its count
   ops               public wrappers: pair planes + binning + vote
                     (glcm_cuda), the fused pass (glcm_cuda_multi), texture
                     maps (glcm_cuda_windowed), volumes (glcm_cuda_volume),

@@ -164,6 +164,28 @@ def test_fires_pruned_no_eigh(scratch):
     assert "pruned-no-eigh" in _rules_fired(findings)
 
 
+def test_pruned_no_eigh_counts_the_eigensolver_kernel():
+    """On the card f14's eigensolver kernel leaves no eigh op behind: a
+    record with its launch and no op shows an eigendecomposition to the rule
+    (and to the audit's ``dirty-eigh`` check, through ``eigh_ops``)."""
+    spec = GLCMSpec(levels=8, pairs=((1, 0),))
+    idle = {k.__name__: 0 for k in op_lint.KERNELS}
+    rule = op_lint.get_rule("pruned-no-eigh")
+
+    def check(launches):
+        record = op_lint.PlanRecord(ops=(), launches=launches, entered=())
+        ctx = op_lint.LintContext(record=record, spec=spec,
+                                  backend=_backends.get_backend("cuda_fused"),
+                                  shape=(2, 16, 16), dtype=torch.float32,
+                                  device=torch.device("cuda"))
+        return op_lint.eigh_ops(record), rule.check(ctx)
+
+    assert check(idle) == ([], [])
+    found, findings = check({**idle, "glcm_fused": 1, "second_eigenvalue": 1})
+    assert found == ["kernel:second_eigenvalue"]
+    assert len(findings) == 1 and "kernel:second_eigenvalue" in findings[0]
+
+
 def test_fires_no_f64_promotion(scratch):
     """Promotes the counts through float64 in the counting stage."""
 
@@ -248,6 +270,18 @@ def test_fires_device_kernel_launches():
         record=op_lint.PlanRecord(ops=(), launches={"glcm_fused": 1}),
     )
     assert op_lint.get_rule("device-kernel-launches").check(clean) == []
+
+
+def test_device_kernel_launches_ignores_the_eigensolver():
+    """f14's eigensolver launches for any plan that selects it, so its launch
+    alone does not show that the counts came from the card's kernels."""
+    spec = GLCMSpec(levels=8, pairs=((1, 0),), scheme="cuda_fused")
+    launches = {k.__name__: 0 for k in op_lint.KERNELS}
+    launches["second_eigenvalue"] = 1
+    ctx = dataclasses.replace(
+        _ctx(spec, "cuda"), record=op_lint.PlanRecord(ops=(), launches=launches))
+    msgs = op_lint.get_rule("device-kernel-launches").check(ctx)
+    assert len(msgs) == 1 and "launched no kernel" in msgs[0]
 
 
 def _ctx(spec, device, **kw):

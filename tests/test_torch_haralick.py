@@ -21,6 +21,8 @@ torch = pytest.importorskip("torch")
 
 from repro.core import haralick as jh
 from repro_torch.core import haralick as th
+from repro_torch.kernels import mcc_kernel
+from repro_torch.obs.trace import Tracer, set_tracer
 
 RTOL, ATOL, F14_ATOL = 1e-5, 1e-6, 1e-4
 
@@ -122,16 +124,79 @@ def test_normalize_glcm_matches_reference():
                                rtol=1e-6, atol=0)
 
 
-def test_f14_in_chunks_matches_reference(monkeypatch):
-    # f14's eigensolve runs in chunks of matrices (cuSOLVER refuses a texture
-    # map's whole batch); a ragged last chunk must not change any feature.
+@pytest.fixture
+def one_thread():
+    """Bit-for-bit comparisons on one intra-op thread: a threaded BLAS or
+    LAPACK call may split its sums differently from one call to the next
+    on a busy host, and two calls then differ in their last bits."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("levels", [8, 40])
+def test_f14_in_chunks_matches_reference(monkeypatch, one_thread, levels):
+    # f14's plain eigensolve runs in chunks of matrices (cuSOLVER refuses a
+    # texture map's whole batch); a ragged last chunk must not change any
+    # feature. L = 8 reaches it through the wrapper's CPU branch, L = 40
+    # directly.
     rng = np.random.default_rng(4)
-    counts = _glcm_counts(rng, 8, "random", n=7)
+    counts = _glcm_counts(rng, levels, "random", n=7)
     whole = th.haralick_features(torch.from_numpy(counts))
-    monkeypatch.setattr(th, "EIG_CHUNK_ELEMENTS", 3 * 8 * 8)
+    monkeypatch.setattr(mcc_kernel, "EIG_CHUNK_ELEMENTS", 3 * levels * levels)
+    calls = []
+    eigvalsh = torch.linalg.eigvalsh
+    monkeypatch.setattr(torch.linalg, "eigvalsh", lambda g: calls.append(len(g)) or eigvalsh(g))
     chunked = th.haralick_features(torch.from_numpy(counts))
+    assert calls == [3, 3, 1]
     np.testing.assert_array_equal(chunked.numpy(), whole.numpy())
     _assert_features_close(chunked.numpy(), reference_features(counts))
+
+
+def _todays_f14(counts):
+    """f14 as the port computed it before its kernel: A, A Aᵀ and one
+    eigvalsh over the whole batch, on the CPU."""
+    p = th.normalize_glcm(torch.from_numpy(counts).to(torch.float64))
+    px, py = p.sum(dim=2), p.sum(dim=1)
+    a = p / torch.sqrt(px[:, :, None].clamp_min(1e-12) * py[:, None, :].clamp_min(1e-12))
+    second = torch.linalg.eigvalsh(a @ a.transpose(-1, -2))[:, -2]
+    return p, px, py, second
+
+
+@pytest.mark.parametrize("levels", [2, 8, 32, 40])
+@pytest.mark.parametrize("kind", ["random", "sparse", "smooth"])
+def test_f14_on_the_cpu_is_todays_formula_bit_for_bit(one_thread, levels, kind):
+    """The wrapper's CPU branch (L <= 32) and the plain version (L = 40)
+    give the former formula's λ₂ and f14 exactly."""
+    assert mcc_kernel._EPS == th._EPS  # the same clamp of the marginals
+    counts = _glcm_counts(np.random.default_rng(levels + 5), levels, kind, n=5)
+    p, px, py, want = _todays_f14(counts)
+    assert torch.equal(mcc_kernel.second_eigenvalue(p, px, py), want)
+    assert torch.equal(mcc_kernel.second_eigenvalue_plain(p, px, py), want)
+    f14 = th.haralick_features(torch.from_numpy(counts),
+                               select=("max_correlation_coefficient",))[:, 0]
+    assert torch.equal(f14, torch.sqrt(want.clamp_min(0.0)).to(torch.float32))
+
+
+def test_f14_routes_by_width(monkeypatch):
+    """``_features`` calls the wrapper at L = 32 and the plain version at
+    L = 40; on the CPU both spans read ``solver="eigvalsh"``."""
+    calls = []
+    wrapper = mcc_kernel.second_eigenvalue
+    monkeypatch.setattr(mcc_kernel, "second_eigenvalue",
+                        lambda p, px, py: calls.append(p.shape[-1]) or wrapper(p, px, py))
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    try:
+        for levels in (32, 40):
+            counts = _glcm_counts(np.random.default_rng(levels), levels, "random", n=2)
+            th.haralick_features(torch.from_numpy(counts))
+    finally:
+        set_tracer(prev)
+    assert calls == [32]
+    spans = [s for s in tracer.spans() if s.name == "haralick.eigvalsh"]
+    assert [s.attrs for s in spans] == [{"matrices": 2, "solver": "eigvalsh"}] * 2
 
 
 def test_correlation_of_a_single_level_marginal_is_zero():

@@ -4,8 +4,10 @@ On the CPU a wrapper computes its kernel's plain version; these tests hold
 that version, count for count, against the reference kernels run in
 interpret mode — with -1 padding, levels outside [0, L), dx < 0,
 dy == tile_h, a height that is not a multiple of tile_h, and scalar and
-per-image quantization. The ``cuda`` test holds each kernel against its
-plain version on the card and skips where there is none.
+per-image quantization. The ``cuda`` tests hold each kernel against its
+plain version on the card and skip where there is none; f14's eigensolver
+(``second_eigenvalue``) has no Pallas counterpart and is held to its plain
+version only.
 """
 
 import shutil
@@ -16,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.glcm import PAPER_PAIRS, glcm_features
+from repro_torch.core.haralick import haralick_features
 from repro_torch.core.plan import compile_plan
 from repro_torch.core.quantize import uniform_params
 from repro_torch.core.spec import GLCMSpec
@@ -27,6 +30,8 @@ from repro_torch.kernels.glcm_kernel import (
     glcm_vote,
     glcm_vote_plain,
 )
+from repro_torch.kernels import mcc_kernel
+from repro_torch.kernels.mcc_kernel import second_eigenvalue, second_eigenvalue_plain
 
 try:  # the reference needs JAX, which a machine with a card may not have
     import jax.numpy as jnp
@@ -287,7 +292,7 @@ def test_build_flags_keep_ieee_arithmetic():
     assert "-prec-div=true" in flags and "-ftz=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert set(build.KERNELS) == {"glcm_vote", "glcm_fused", "glcm_window", "glcm_volume",
-                                  "histogram"}
+                                  "histogram", "haralick_mcc"}
     for name in build.KERNELS:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
@@ -378,3 +383,126 @@ def test_fused_march_edges_on_card(levels):
         got = glcm_fused(odd, levels=levels, offsets=offsets, quant=(0.0, 255.0))
         assert torch.equal(got, glcm_fused_plain(odd, levels, offsets, quant=(0.0, 255.0)))
     assert glcm_fused.launches == before + 10
+
+
+# ---------------------------------------------------------------------------
+# f14's eigensolver (second_eigenvalue)
+# ---------------------------------------------------------------------------
+
+MCC_ATOL = 1e-12  # |Δλ₂| of the kernel against the plain version
+
+
+def _mcc_counts(rng, levels, n=3):
+    """Count matrices f14 meets, as ``_glcm_counts`` of the Haralick tests
+    makes them (iid, sparse, co-occurrences of a smooth image), and those
+    whose grams are of rank 1 and 2, zero, diagonal with a repeated
+    eigenvalue, and with λ₁ ≈ λ₂ (two blocks)."""
+    L = levels
+    iid = rng.integers(0, 50, size=(n, L, L))
+    sparse = rng.integers(0, 50, size=(n, L, L)) * (rng.random((n, L, L)) < 0.2)
+    sparse[:, 0, 0] += 1
+    smooth = np.zeros((n, L, L))
+    for i in range(n):
+        base = np.cumsum(rng.normal(size=(48, 48)), axis=1)
+        base += np.cumsum(rng.normal(size=(48, 48)), axis=0)
+        q = np.floor((base - base.min()) / (np.ptp(base) + 1e-9) * L).clip(0, L - 1)
+        q = q.astype(np.int64)
+        np.add.at(smooth[i], (q[1:, :-1], q[:-1, 1:]), 1)
+    u, v = np.arange(1.0, L + 1), np.arange(L, 0.0, -1)
+    w = np.arange(L) % 3 + 1.0
+    blocks = np.zeros((L, L))
+    h = L // 2
+    blocks[:h, :h], blocks[h:, h:] = 1.0, 1.0 + 1e-9
+    special = np.stack([np.outer(u, v), np.outer(u, v) + np.outer(w, w[::-1]),
+                        np.zeros((L, L)), np.eye(L), np.diag(np.r_[3.0, 3.0, np.ones(L - 2)]),
+                        blocks])
+    return np.concatenate([iid, sparse, smooth, special]).astype(np.float64)
+
+
+def _mcc_inputs(counts):
+    p = counts.to(torch.float64)
+    p = p / p.sum(dim=(-2, -1), keepdim=True).clamp_min(1e-12)
+    return p, p.sum(dim=2), p.sum(dim=1)
+
+
+def test_second_eigenvalue_checks_its_arguments():
+    p, px, py = _mcc_inputs(torch.from_numpy(_mcc_counts(np.random.default_rng(0), 4)))
+    with pytest.raises(ValueError, match=r"\(N, L, L\)"):
+        second_eigenvalue(p[:, :, :3], px, py)
+    with pytest.raises(ValueError, match="marginals"):
+        second_eigenvalue(p, px[:, :3], py)
+    before = second_eigenvalue.launches
+    # On the CPU every width, dtype and layout takes the plain version.
+    assert torch.equal(second_eigenvalue(p, px, py), second_eigenvalue_plain(p, px, py))
+    assert second_eigenvalue.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [2, 3, 8, 16, 31, 32])
+def test_second_eigenvalue_equals_plain_on_card(levels):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    counts = torch.from_numpy(_mcc_counts(np.random.default_rng(levels), levels))
+    p, px, py = _mcc_inputs(counts.to("cuda"))
+    before = second_eigenvalue.launches
+    got = second_eigenvalue(p, px, py)
+    assert second_eigenvalue.launches == before + 1
+    want = second_eigenvalue_plain(p, px, py)
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= MCC_ATOL
+    cpu = second_eigenvalue(*(t.cpu() for t in (p, px, py)))
+    assert float((got.cpu() - cpu).abs().max()) <= MCC_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["smooth", "random"])
+def test_second_eigenvalue_texture_map_on_card(kind):
+    """The texture map's 260 100 matrices of one seeded 4096² image (32²
+    windows at stride 16, the paper's four pairs), in one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    make = smooth_texture if kind == "smooth" else random_texture
+    img = torch.from_numpy(make(4096, seed=3).astype(np.float32)).to("cuda")
+    spec = GLCMSpec(levels=32, pairs=PAPER_PAIRS, quantize="uniform", region="window",
+                    region_shape=32, region_stride=16)
+    counts = compile_plan(spec, tuple(img.shape), device="cuda")(img)
+    p, px, py = _mcc_inputs((counts + counts.transpose(-1, -2)).reshape(-1, 32, 32))
+    assert p.shape[0] == 260_100
+    before = second_eigenvalue.launches
+    got = second_eigenvalue(p, px, py)
+    assert second_eigenvalue.launches == before + 1
+    assert float((got - second_eigenvalue_plain(p, px, py)).abs().max()) <= MCC_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [8, 32])
+def test_haralick_features_with_the_kernel_equal_plain_on_card(monkeypatch, levels):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    counts = torch.from_numpy(_mcc_counts(np.random.default_rng(levels + 1), levels)).to("cuda")
+    before = second_eigenvalue.launches
+    got = haralick_features(counts)
+    assert second_eigenvalue.launches == before + 1
+    monkeypatch.setattr(mcc_kernel, "second_eigenvalue", lambda p, px, py:
+                        second_eigenvalue_plain(p, px, py))
+    want = haralick_features(counts)
+    assert float((got - want).abs().max()) <= 1e-7
+
+
+@pytest.mark.cuda
+def test_second_eigenvalue_raises_on_card():
+    """Past L = 32, on float32 and on a non-contiguous input the card raises
+    and launches nothing: no fallback."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    rng = np.random.default_rng(33)
+    p, px, py = _mcc_inputs(torch.from_numpy(_mcc_counts(rng, 33)).to("cuda"))
+    q, qx, qy = _mcc_inputs(torch.from_numpy(_mcc_counts(rng, 32)).to("cuda"))
+    before = second_eigenvalue.launches
+    with pytest.raises(ValueError, match="L <= 32"):
+        second_eigenvalue(p, px, py)
+    with pytest.raises(ValueError, match="float64"):
+        second_eigenvalue(q.float(), qx.float(), qy.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        second_eigenvalue(q.transpose(-1, -2), qx, qy)
+    assert second_eigenvalue.launches == before
