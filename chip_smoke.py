@@ -49,6 +49,9 @@ Phases, each printing one JSON line:
    memory rate), the plain version and the chunked ``torch.linalg.eigvalsh``
    it replaces; a launch allocates only its output. The main path must
    launch it once each for glcm_features, the texture map and the volumes.
+   Then the one-block kernel for L > 32 on the 32 L = 256 matrices of 8
+   images at distance 1 in four directions, against its plain version
+   within 1e-12, with its ms beside its bound and the plain version's.
    ``python3 chip_smoke.py mcc`` builds it and runs this phase alone.
 7. ``histogram``: ``kernels.histogram`` on the 16384² image binned to
    L = 32 (the contended case) and on the random stack[4] binned to
@@ -1260,6 +1263,20 @@ def phase_mcc(smooth: torch.Tensor, rnd: torch.Tensor) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / FP64_OPS_PER_S
     out.update(matrices=n, bytes=nbytes, flop=flop, bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "float64 operations")
+
+    # The wide kernel (one block a matrix): scikit-image's L = 256 at
+    # distance 1 in four directions, 8 images of each texture as one call of
+    # features-4096-L256 has them (32 matrices), against the plain version.
+    wide = GLCMSpec(levels=256, pairs=((1, 0), (1, 45), (1, 90), (1, 135)), quantize="uniform")
+    stack = torch.stack([smooth, rnd] * 4)
+    counts = compile_plan(wide, tuple(stack.shape))(stack)
+    p, px, py = _mcc_inputs(counts.reshape(-1, 256, 256))
+    out["wide_max_abs_err"] = _mcc_err(p, px, py, "second_eigenvalue L=256")
+    out["wide_ms"] = cuda_ms(lambda: second_eigenvalue(p, px, py), reps=10)
+    out["wide_plain_ms"] = cuda_ms(lambda: second_eigenvalue_plain(p, px, py), reps=3)
+    n = p.shape[0]
+    w_bytes, w_flop = n * (256 * 256 + 1) * 8, n * (4 * 256**3 / 3 + 3 * 256 * 53)
+    out["wide_bound_ms"] = max(w_bytes / HBM_BYTES_PER_S, w_flop / FP64_OPS_PER_S) * 1e3
     emit({"phase": "mcc", **out})
     return out
 

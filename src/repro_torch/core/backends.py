@@ -72,13 +72,14 @@ from repro_torch.core.schemes import (
 )
 from repro_torch.core.spec import GLCMSpec
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.glcm_kernel import glcm_fused, glcm_volume
+from repro_torch.kernels.glcm_kernel import glcm_fused, glcm_volume, kernel_kind, launch_plan
 
 __all__ = [
     "Backend",
     "Capabilities",
     "available_backends",
     "compute_regions",
+    "count_route",
     "get_backend",
     "register",
     "resolve_scheme",
@@ -123,7 +124,11 @@ class Backend:
     ``caps.region_grid``) serves non-global specs natively, returning
     (B, *grid, n_pairs, L, L). ``host_fn(stack_np, spec, quant)`` (present
     iff ``caps.host_native``) counts a (B, *spatial) ndarray into an integer
-    count ndarray, regions included.
+    count ndarray, regions included. ``route(shape, spec, kind)``
+    (optional) says, without launching, where the kernel that
+    ``compute_regions`` reaches on the card for a (B, *spatial) input of
+    ``shape`` and ``kind`` (``glcm_kernel.kernel_kind``) keeps its votes
+    (see :func:`count_route`).
     """
 
     name: str
@@ -133,6 +138,7 @@ class Backend:
     local_partial: Callable[..., torch.Tensor] | None = None
     region_compute: Callable[..., torch.Tensor] | None = None
     host_fn: Callable[..., np.ndarray] | None = None
+    route: Callable[[tuple[int, ...], GLCMSpec, int], dict] | None = None
 
 
 def supports_ndim(backend: Backend, ndim: int) -> bool:
@@ -168,6 +174,24 @@ def compute_regions(
         quant = repeat_params(quant, flat.shape[0])
     mats = backend.compute(flat, spec, quant=quant)
     return mats.reshape((b,) + grid + tuple(mats.shape[1:]))
+
+
+def count_route(backend: Backend, img_batch: torch.Tensor, spec: GLCMSpec,
+                quant=None) -> dict:
+    """Where :func:`compute_regions`' count of ``img_batch`` keeps its votes:
+    ``hist`` "shared" (``copies`` private sub-histogram sets in shared
+    memory, merged into the output at block exit) or "global" (global
+    atomics straight into the output; ``copies`` 1), from the kernel's
+    launch plan (``glcm_kernel.launch_plan``), which launches nothing and
+    reads nothing back; "plain" (``copies`` 0) on the CPU, where the kernels'
+    plain versions count. Empty for a backend on the card that declares no
+    ``route`` (only ``cuda_fused`` does, for whole images)."""
+    if img_batch.device.type != "cuda":
+        return {"hist": "plain", "copies": 0}
+    if backend.route is None:
+        return {}
+    return backend.route(tuple(img_batch.shape), spec, kernel_kind(img_batch.dtype, quant))
+
 
 
 _REGISTRY: dict[str, Backend] = {}
@@ -364,6 +388,16 @@ def _cuda_fused_region_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) ->
     )
 
 
+def _cuda_fused_route(shape, spec: GLCMSpec, kind: int) -> dict:
+    if spec.region != "global":  # region_compute: the window kernel, no route
+        return {}
+    offsets = spec.offsets()
+    tile_h = spec.tile_h if spec.tile_h is not None else kops.default_tile_h(offsets)
+    plan = launch_plan("glcm_fused", shape, offsets, levels=spec.levels, split=tile_h,
+                       copies=spec.copies, kind=kind)
+    return {"hist": "shared" if plan["shared_hist"] else "global", "copies": plan["copies"]}
+
+
 def _cuda_volume_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:
     return kops.glcm_cuda_volume(
         img, spec.levels, spec.pairs, offsets=spec.offsets(), slab_d=spec.slab_d,
@@ -460,6 +494,7 @@ register(
         ),
         local_partial=_cuda_fused_local_partial,
         region_compute=_cuda_fused_region_compute,
+        route=_cuda_fused_route,
     )
 )
 register(

@@ -141,14 +141,18 @@ def _features(p: torch.Tensor, select: tuple[int, ...]) -> torch.Tensor:
     if 13 in select:
         # f14: sqrt of the second-largest eigenvalue of Q, whose spectrum
         # equals that of the symmetric PSD matrix A Aᵀ, A = P/√(px py).
-        # Up to L = 32 one warp a matrix solves it on the card (the CPU runs
-        # the plain version); wider matrices take the plain version, eigvalsh
-        # in chunks, on either device. On the card eigvalsh reads its error
-        # code back, so there the span is also the host's wait for the work
-        # queued before it; the kernel's launch waits for nothing.
+        # Up to L = 1024 a kernel solves it on the card (the CPU runs the
+        # plain version); wider matrices take the plain version, eigvalsh
+        # in chunks, on either device (``chunks`` eigvalsh calls). On the
+        # card each reads its error code back, so there the span is also the
+        # host's wait for the work queued before it; the kernel's launch
+        # waits for nothing.
         kernel = L <= _mcc.MAX_LEVELS
-        solver = "kernel" if kernel and p.device.type == "cuda" else "eigvalsh"
-        with _obs_trace.get_tracer().span("haralick.eigvalsh", matrices=n, solver=solver):
+        on_card = kernel and p.device.type == "cuda"
+        chunks = 0 if on_card else _mcc.eigvalsh_chunks(n, L)
+        with _obs_trace.get_tracer().span("haralick.eigvalsh", matrices=n,
+                                          solver="kernel" if on_card else "eigvalsh",
+                                          chunks=chunks):
             if kernel:
                 second = _mcc.second_eigenvalue(p.contiguous(), px, py)
             else:

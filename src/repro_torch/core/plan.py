@@ -64,10 +64,13 @@ records, with the global tracer live at call time (:func:`~repro_torch.obs.
 trace.get_tracer`), a ``plan.run`` span (``batch``, ``scheme``) with three
 children in order: ``plan.prepare`` (the range reduction, quantization or
 cast), ``plan.count`` (the backend's count; on a host-native backend also
-the copy of the counts to the device) and ``plan.tail`` (symmetric,
-normalize, Haralick features; ``matrices``), inside which f14's eigensolver
-records ``haralick.eigvalsh`` (``matrices``, ``solver``: "kernel" where the
-card's kernel solves it, else "eigvalsh"). They are host times: no span
+the copy of the counts to the device; on the device path ``hist`` and
+``copies``, the count's route by ``backends.count_route``, found at the
+plan's first traced call and kept with the plan) and ``plan.tail``
+(symmetric, normalize, Haralick features; ``matrices``), inside which f14's
+eigensolver records ``haralick.eigvalsh`` (``matrices``, ``solver``:
+"kernel" where the card's kernel solves it, else "eigvalsh"; ``chunks``,
+the eigvalsh calls, 0 on the kernel). They are host times: no span
 synchronizes the device, so on the card a span ends once its work is
 enqueued, or when one of its own ops waited for the device, as eigvalsh
 does (f14's kernel launch waits for nothing). Under
@@ -532,6 +535,13 @@ def compile_plan(
 
     n_batch = shape[0] if batched else 1
     n_mats = n_batch * math.prod(grid) * len(resolved.pairs)  # the tail's matrices
+    routes: dict = {}  # the count's route, by what the backend is handed
+
+    def route(stack: torch.Tensor, qargs) -> dict:
+        key = (stack.dtype, qargs is None)
+        if key not in routes:
+            routes[key] = _backends.count_route(backend, stack, resolved, quant=qargs)
+        return routes[key]
 
     def run(img) -> torch.Tensor:
         tr = _obs_trace.get_tracer()
@@ -539,7 +549,7 @@ def compile_plan(
             x = as_input(img)
             with tr.span("plan.prepare"):
                 stack, qargs = prepare(x if batched else x[None])
-            with tr.span("plan.count"):
+            with tr.span("plan.count", **(route(stack, qargs) if tr.enabled else {})):
                 counts = _backends.compute_regions(backend, stack, resolved, quant=qargs)
             with tr.span("plan.tail", matrices=n_mats):
                 mats = tail(counts)

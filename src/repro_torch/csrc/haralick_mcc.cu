@@ -1,6 +1,7 @@
 // f14's eigensolver for Hopper (sm_90a), behind a plain C interface: the
 // second-largest eigenvalue of G = A A^T, A = P / sqrt(px py), for a batch
-// of L x L joint probabilities P with their marginals, 2 <= L <= 32.
+// of L x L joint probabilities P with their marginals, 2 <= L <= 1024 (one
+// warp a matrix up to L = 32, one block a matrix past it).
 //
 // Replaces no TPU kernel. The reference computes f14 (the maximal
 // correlation coefficient) with jnp.linalg.eigvalsh over the whole batch
@@ -40,6 +41,22 @@
 //      rounds shrink it below 2^-53 of itself, with no lane diverging.
 // Lanes and rows past L hold zeros and stay zero; the reduction and the
 // counts run over the L x L matrix itself.
+//
+// Wider matrices, 32 < L <= 1024 (mcc_wide_kernel): one block of 1024
+// threads a matrix, on G = A A^T as the caller formed it (a float64 GEMM),
+// reduced in place in device memory, where a 256 x 256 G (512 KiB) stays in
+// L2. The block is `parts` groups of `cols` threads (cols the power of two
+// at least L and 32): thread (c, q) owns column c in group q and walks rows
+// j = k + 1 + q, k + 1 + q + parts, ..., so each warp reads and writes 32
+// consecutive doubles of a row. The same dsytd2 steps as in
+// step 3: the reflector from row k (G's column k), p = tau G v as partial
+// sums that the q = 0 threads add in a fixed order, the dot products as
+// block sums that every thread ends with bit for bit, and the rank-2
+// update, one row per thread and step. Then step 4 with the whole block:
+// each round the 1024 threads count at 1024 points, and the first warp
+// ballot that holds the eigenvalue's point sets the piece kept; 6 rounds.
+// It replaces cuSOLVER's eigvalsh of every eigenvalue, one matrix after
+// another (2 ms a 256 x 256 matrix on the H100, its host waiting).
 //
 // What bounds it: per matrix it reads L^2 + 2L doubles and writes one (a
 // texture map's 260 100 32 x 32 matrices: 2.27 GB, 0.68 ms at 3.35 TB/s);
@@ -287,6 +304,184 @@ mcc_eig_kernel(const double* __restrict__ p, const double* __restrict__ px,
   if (sub == 0 && base + m < n) out[base + m] = 0.5 * (lo + hi);
 }
 
+constexpr int kWideThreads = 1024;  // threads of a block of mcc_wide_kernel
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideMax = kWideThreads;  // the largest L: a column a thread at least
+constexpr int kWideRounds = rounds_for(kWideThreads + 1);  // 6
+constexpr int kBatch = 8;  // rows of G a thread loads at once
+
+// What mcc_wide_kernel keeps in shared memory, after its `cols` doubles of
+// v and of w.
+struct WideShared {
+  double part[kWideThreads];   // partial sums of p = tau G v
+  double red[kWideWarps];      // a block sum's warp sums
+  unsigned ballot[kWideWarps];  // a round's warp ballots
+};
+
+// x summed over the block: every thread returns the same bits.
+__device__ __forceinline__ double block_sum(double x, WideShared& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = warp_sum(x);
+  __syncthreads();  // red is free
+  if (lane == 0) s.red[warp] = x;
+  __syncthreads();
+  return warp_sum(s.red[lane]);
+}
+
+__device__ __forceinline__ double block_min(double x, WideShared& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmin(x, __shfl_xor_sync(kFull, x, o));
+  __syncthreads();
+  if (lane == 0) s.red[warp] = x;
+  __syncthreads();
+  x = s.red[lane];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmin(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ double block_max(double x, WideShared& s) {
+  return -block_min(-x, s);
+}
+
+// One block a matrix: gram (n, L, L) holds G = A A^T, which the kernel
+// overwrites; out[m] = lambda_2 of matrix m. cols is the smallest power of
+// two >= max(L, 32); dynamic shared memory: 2 * cols doubles, WideShared and
+// L double2.
+__global__ void __launch_bounds__(kWideThreads, 1)
+mcc_wide_kernel(double* __restrict__ gram, double* __restrict__ out, int L, int cols) {
+  extern __shared__ __align__(16) double wide[];
+  double* v = wide;
+  double* w = v + cols;
+  WideShared& s = *reinterpret_cast<WideShared*>(w + cols);
+  double2* dq = reinterpret_cast<double2*>(&s + 1);  // (d_j, e_{j-1}^2)
+  const int t = threadIdx.x;
+  const int parts = kWideThreads / cols;
+  const int c = t % cols, q = t / cols;
+  const bool col = c < L;
+  double* G = gram + static_cast<long long>(blockIdx.x) * L * L;
+
+  // Householder reduction to tridiagonal form (d_k, e_k), as in step 3.
+  double e2_prev = 0.0;
+  for (int k = 0; k < L; ++k) {
+    const double dk = G[static_cast<long long>(k) * L + k];
+    double ek = 0.0;
+    if (k + 2 < L) {
+      const double alpha = G[static_cast<long long>(k) * L + k + 1];
+      const double xc = (q == 0 && col && c > k) ? G[static_cast<long long>(k) * L + c] : 0.0;
+      const double sigma = block_sum(c > k + 1 ? xc * xc : 0.0, s);
+      ek = alpha;
+      if (sigma != 0.0) {  // else the column is reduced already: H = I
+        const double beta = -copysign(sqrt(alpha * alpha + sigma), alpha);
+        const double tau = (beta - alpha) * reciprocal(beta);
+        const double scale = reciprocal(alpha - beta);
+        ek = beta;
+        if (q == 0) v[c] = c == k + 1 ? 1.0 : (c > k + 1 && col ? xc * scale : 0.0);
+        __syncthreads();
+        // Thread (c, q)'s part of p_c = tau sum_j G[j][c] v_j, j > k, its
+        // rows kBatch at a time, so that their loads are in flight at once.
+        double acc[4] = {};
+        if (col && c > k) {
+          int j = k + 1 + q;
+#pragma unroll 1
+          for (; j + (kBatch - 1) * parts < L; j += kBatch * parts) {
+            double g[kBatch];
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) g[u] = G[static_cast<long long>(j + u * parts) * L + c];
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) acc[u % 4] = fma(g[u], v[j + u * parts], acc[u % 4]);
+          }
+          for (; j < L; j += parts) acc[0] = fma(G[static_cast<long long>(j) * L + c], v[j], acc[0]);
+        }
+        s.part[t] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+        __syncthreads();
+        double pc = 0.0;
+        if (q == 0 && col && c > k) {
+          for (int r = 0; r < parts; ++r) pc += s.part[r * cols + c];
+          pc *= tau;
+        }
+        const double vc = v[c];
+        const double kk = block_sum(q == 0 ? pc * vc : 0.0, s);
+        if (q == 0) w[c] = pc - 0.5 * tau * kk * vc;
+        __syncthreads();
+        // G -= v w^T + w v^T on the rows j > k, columns c > k, kBatch rows
+        // loaded before any is stored.
+        if (col && c > k) {
+          const double wc = w[c];
+          int j = k + 1 + q;
+#pragma unroll 1
+          for (; j + (kBatch - 1) * parts < L; j += kBatch * parts) {
+            double g[kBatch];
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) g[u] = G[static_cast<long long>(j + u * parts) * L + c];
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) {
+              const int r = j + u * parts;
+              G[static_cast<long long>(r) * L + c] = fma(-vc, w[r], fma(-wc, v[r], g[u]));
+            }
+          }
+          for (; j < L; j += parts) {
+            double* gj = G + static_cast<long long>(j) * L + c;
+            *gj = fma(-vc, w[j], fma(-wc, v[j], *gj));
+          }
+        }
+        __syncthreads();  // the next step reads the updated rows
+      }
+    } else if (k + 2 == L) {
+      ek = G[static_cast<long long>(k) * L + k + 1];
+    }
+    if (t == 0) dq[k] = make_double2(dk, e2_prev);
+    e2_prev = ek * ek;
+  }
+  __syncthreads();
+
+  // Step 4 with the whole block: Sturm multisection for the eigenvalue of
+  // index L - 2 (ascending), at kWideThreads points a round.
+  double lo = DBL_MAX, hi = -DBL_MAX, e2 = 0.0;
+  for (int j = t; j < L; j += kWideThreads) {
+    const double2 d = dq[j];
+    const double r = sqrt(d.y) + (j + 1 < L ? sqrt(dq[j + 1].y) : 0.0);
+    lo = fmin(lo, d.x - r);
+    hi = fmax(hi, d.x + r);
+    e2 = fmax(e2, d.y);
+  }
+  lo = block_min(lo, s);
+  hi = block_max(hi, s);
+  const double pivmin = DBL_MIN * fmax(1.0, block_max(e2, s));
+  const double fudge = 2.1 * fmax(fabs(lo), fabs(hi)) * DBL_EPSILON * L + 4.2 * pivmin;
+  lo -= fudge;
+  hi += fudge;
+  for (int round = 0; round < kWideRounds; ++round) {
+    const double step = (hi - lo) / (kWideThreads + 1);
+    const double x = lo + (t + 1) * step;
+    int count = 0;  // eigenvalues <= x
+    double qq = 1.0;
+#pragma unroll 4
+    for (int j = 0; j < L; ++j) {
+      const double2 dj = dq[j];
+      qq = (dj.x - dj.y * reciprocal(qq)) - x;
+      if (fabs(qq) < pivmin) qq = -pivmin;
+      count += qq <= 0.0;
+    }
+    const unsigned ballot = __ballot_sync(kFull, count >= L - 1);
+    if ((t & 31) == 0) s.ballot[t >> 5] = ballot;
+    __syncthreads();
+    int f = kWideThreads;  // the first point at or above the eigenvalue
+    for (int i = 0; i < kWideWarps; ++i) {
+      if (s.ballot[i]) {
+        f = i * 32 + __ffs(s.ballot[i]) - 1;
+        break;
+      }
+    }
+    __syncthreads();  // the ballots are read before the next round writes them
+    const double x_f = lo + (f + 1) * step, x_before = lo + f * step;
+    if (f < kWideThreads) hi = x_f;
+    if (f > 0) lo = x_before;
+  }
+  if (t == 0) out[blockIdx.x] = 0.5 * (lo + hi);
+}
+
 }  // namespace
 
 extern "C" {
@@ -311,6 +506,24 @@ int haralick_mcc_launch(const double* p, const double* px, const double* py, dou
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   mcc_eig_kernel<<<static_cast<unsigned>(blocks), kWarps * 32, 0,
                    static_cast<cudaStream_t>(stream)>>>(p, px, py, out, n, levels, per_warp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// lambda_2 of each of the n Gram matrices G = A A^T in gram (n, L, L),
+// contiguous float64 on the card, which the kernel overwrites, into out (n,)
+// float64; 32 < L <= 1024. Launches on `stream`, allocates nothing and does
+// not synchronise. Returns cudaGetLastError() (0 = launched).
+int haralick_mcc_wide_launch(double* gram, double* out, long long n, int levels, void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || levels <= kMax || levels > kWideMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  cudaGetLastError();  // start from a clean error state
+  int cols = 32;
+  while (cols < levels) cols *= 2;
+  const size_t smem = 2 * cols * sizeof(double) + sizeof(WideShared) + levels * sizeof(double2);
+  mcc_wide_kernel<<<static_cast<unsigned>(n), kWideThreads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(gram, out, levels, cols);
   return static_cast<int>(cudaGetLastError());
 }
 

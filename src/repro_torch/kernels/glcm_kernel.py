@@ -56,6 +56,7 @@ __all__ = [
     "DEFAULT_COPIES",
     "DEFAULT_SLAB_D",
     "MAX_OFFSETS",
+    "kernel_kind",
     "launch_plan",
 ]
 
@@ -277,11 +278,21 @@ def _kernel_input(stack: torch.Tensor, quant) -> tuple[torch.Tensor, int]:
     converts each value to float32 exactly, as ``bin_values`` does); any
     other raw dtype as float32. A contiguous stack, a slice of one included,
     is not copied."""
+    kind = kernel_kind(stack.dtype, quant)
+    if kind == KIND_LEVELS:
+        return stack.to(torch.int32).contiguous(), kind
+    if kind == KIND_BYTE:
+        return stack.contiguous(), kind
+    return stack.to(torch.float32).contiguous(), kind
+
+
+def kernel_kind(dtype: torch.dtype, quant) -> int:
+    """What the image kernels read from an input of ``dtype`` (see
+    ``_kernel_input``): levels without ``quant``, else raw uint8 as it is or
+    any other dtype as float32."""
     if quant is None:
-        return stack.to(torch.int32).contiguous(), KIND_LEVELS
-    if stack.dtype == torch.uint8:
-        return stack.contiguous(), KIND_BYTE
-    return stack.to(torch.float32).contiguous(), KIND_FLOAT
+        return KIND_LEVELS
+    return KIND_BYTE if dtype == torch.uint8 else KIND_FLOAT
 
 
 def launch_plan(kernel: str, shape: tuple[int, ...], offsets, *, levels: int,

@@ -11,8 +11,10 @@
 It replaces no TPU kernel: the reference solves f14 with
 ``jnp.linalg.eigvalsh`` (``repro/core/haralick.py``), and the plain version
 does the same with ``torch.linalg.eigvalsh``, which on the card is
-cuSOLVER's batched solver for every eigenvalue. The kernel computes the
-one eigenvalue f14 needs, one warp a matrix, with A and G kept on chip.
+cuSOLVER's batched solver for every eigenvalue. The kernels compute the
+one eigenvalue f14 needs: up to L = ``WARP_LEVELS`` one warp a matrix,
+with A and G kept on chip; wider, one block a matrix on G, which the
+wrapper forms with a float64 GEMM, as the plain version does.
 
 As in ``glcm_kernel``, the wrapper checks its arguments and dispatches on
 the device of the tensor it was given: on the CPU it computes the plain
@@ -31,9 +33,11 @@ import torch
 from repro_torch.analysis.scopes import scope
 from repro_torch.kernels.glcm_kernel import _check_device, _check_launch, _function
 
-__all__ = ["second_eigenvalue", "second_eigenvalue_plain", "EIG_CHUNK_ELEMENTS", "MAX_LEVELS"]
+__all__ = ["second_eigenvalue", "second_eigenvalue_plain", "eigvalsh_chunks", "EIG_CHUNK_ELEMENTS",
+           "MAX_LEVELS", "WARP_LEVELS"]
 
-MAX_LEVELS = 32  # one warp lane a row (kMax in csrc/haralick_mcc.cu)
+WARP_LEVELS = 32  # one warp lane a row (kMax in csrc/haralick_mcc.cu)
+MAX_LEVELS = 1024  # one block of 1024 threads a matrix (kWideMax)
 
 # Matrix elements per eigvalsh call of the plain version. cuSOLVER's batched
 # symmetric eigensolver refuses a batch as large as a texture map's (260 100
@@ -53,13 +57,26 @@ def second_eigenvalue_plain(p: torch.Tensor, px: torch.Tensor, py: torch.Tensor)
     """Plain version of ``second_eigenvalue``, for any L ≥ 2: A, the
     Gram matrix ``A @ Aᵀ`` and ``eigvalsh(·)[:, -2]`` over chunks of at most
     ``EIG_CHUNK_ELEMENTS`` elements."""
-    L = p.shape[-1]
-    a_mat = p / torch.sqrt(px[:, :, None].clamp_min(_EPS) * py[:, None, :].clamp_min(_EPS))
-    gram = a_mat @ a_mat.transpose(-1, -2)
-    chunk = max(1, EIG_CHUNK_ELEMENTS // (L * L))
     return torch.cat(  # second-largest eigenvalue (eigvalsh ascends)
-        [torch.linalg.eigvalsh(g)[:, -2] for g in gram.split(chunk)]
+        [torch.linalg.eigvalsh(g)[:, -2] for g in _gram(p, px, py).split(_chunk(p.shape[-1]))]
     )
+
+
+def _gram(p: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    """G = A Aᵀ, A = P / √(px·py) with px, py clamped at 1e-12."""
+    a_mat = p / torch.sqrt(px[:, :, None].clamp_min(_EPS) * py[:, None, :].clamp_min(_EPS))
+    return a_mat @ a_mat.transpose(-1, -2)
+
+
+def _chunk(levels: int) -> int:
+    """Matrices of L = ``levels`` an eigvalsh call of the plain version takes."""
+    return max(1, EIG_CHUNK_ELEMENTS // (levels * levels))
+
+
+def eigvalsh_chunks(n: int, levels: int) -> int:
+    """The eigvalsh calls ``second_eigenvalue_plain`` makes for ``n``
+    matrices of L = ``levels``: on the card, the host's waits on it."""
+    return -(-n // _chunk(levels))
 
 
 def second_eigenvalue(p: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
@@ -68,7 +85,8 @@ def second_eigenvalue(p: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> to
 
     The card takes contiguous float64 ``p``, ``px`` and ``py`` of shapes
     (N, L, L), (N, L), (N, L) with 2 ≤ L ≤ ``MAX_LEVELS``, and raises on
-    anything else; the result is exact to float64 rounding.
+    anything else; the result is exact to float64 rounding. Past
+    ``WARP_LEVELS`` it also allocates G, N L² doubles.
     """
     if p.ndim != 3 or p.shape[1] != p.shape[2]:
         raise ValueError(f"expected (N, L, L) matrices, got shape {tuple(p.shape)}")
@@ -100,10 +118,15 @@ def _launch(p, px, py) -> torch.Tensor:
     out = torch.empty((n,), dtype=torch.float64, device=p.device)
     if n == 0:  # a zero-block grid is an invalid launch
         return out
-    fn = _function("haralick_mcc", "haralick_mcc_launch", [_P, _P, _P, _P, _LL, _I, _P])
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
-        code = fn(p.data_ptr(), px.data_ptr(), py.data_ptr(), out.data_ptr(), n, L, stream)
+        if L <= WARP_LEVELS:
+            fn = _function("haralick_mcc", "haralick_mcc_launch", [_P, _P, _P, _P, _LL, _I, _P])
+            code = fn(p.data_ptr(), px.data_ptr(), py.data_ptr(), out.data_ptr(), n, L, stream)
+        else:  # the kernel reduces G in place
+            gram = _gram(p, px, py).contiguous()
+            fn = _function("haralick_mcc", "haralick_mcc_wide_launch", [_P, _P, _LL, _I, _P])
+            code = fn(gram.data_ptr(), out.data_ptr(), n, L, stream)
     _check_launch("haralick_mcc", code)
     second_eigenvalue.launches += 1
     return out

@@ -180,8 +180,9 @@ def test_f14_on_the_cpu_is_todays_formula_bit_for_bit(one_thread, levels, kind):
 
 
 def test_f14_routes_by_width(monkeypatch):
-    """``_features`` calls the wrapper at L = 32 and the plain version at
-    L = 40; on the CPU both spans read ``solver="eigvalsh"``."""
+    """``_features`` calls the wrapper at L = 32 and L = 40 (the kernels'
+    widths) and the plain version past ``MAX_LEVELS``; on the CPU every
+    span reads ``solver="eigvalsh"`` with its ``chunks``."""
     calls = []
     wrapper = mcc_kernel.second_eigenvalue
     monkeypatch.setattr(mcc_kernel, "second_eigenvalue",
@@ -189,14 +190,18 @@ def test_f14_routes_by_width(monkeypatch):
     tracer = Tracer(enabled=True)
     prev = set_tracer(tracer)
     try:
+        monkeypatch.setattr(mcc_kernel, "MAX_LEVELS", 36)
         for levels in (32, 40):
             counts = _glcm_counts(np.random.default_rng(levels), levels, "random", n=2)
             th.haralick_features(torch.from_numpy(counts))
+        monkeypatch.setattr(mcc_kernel, "MAX_LEVELS", 1024)
+        counts = _glcm_counts(np.random.default_rng(40), 40, "random", n=2)
+        th.haralick_features(torch.from_numpy(counts))
     finally:
         set_tracer(prev)
-    assert calls == [32]
+    assert calls == [32, 40]
     spans = [s for s in tracer.spans() if s.name == "haralick.eigvalsh"]
-    assert [s.attrs for s in spans] == [{"matrices": 2, "solver": "eigvalsh"}] * 2
+    assert [s.attrs for s in spans] == [{"matrices": 2, "solver": "eigvalsh", "chunks": 1}] * 3
 
 
 def test_correlation_of_a_single_level_marginal_is_zero():

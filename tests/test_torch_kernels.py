@@ -438,7 +438,7 @@ def test_second_eigenvalue_checks_its_arguments():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("levels", [2, 3, 8, 16, 31, 32])
+@pytest.mark.parametrize("levels", [2, 3, 8, 16, 31, 32, 33, 64, 100, 256, 1024])
 def test_second_eigenvalue_equals_plain_on_card(levels):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
@@ -475,7 +475,7 @@ def test_second_eigenvalue_texture_map_on_card(kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("levels", [8, 32])
+@pytest.mark.parametrize("levels", [8, 32, 64, 256])
 def test_haralick_features_with_the_kernel_equal_plain_on_card(monkeypatch, levels):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
@@ -491,16 +491,16 @@ def test_haralick_features_with_the_kernel_equal_plain_on_card(monkeypatch, leve
 
 @pytest.mark.cuda
 def test_second_eigenvalue_raises_on_card():
-    """Past L = 32, on float32 and on a non-contiguous input the card raises
-    and launches nothing: no fallback."""
+    """Past L = 1024, on float32 and on a non-contiguous input the card
+    raises and launches nothing: no fallback."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     rng = np.random.default_rng(33)
-    p, px, py = _mcc_inputs(torch.from_numpy(_mcc_counts(rng, 33)).to("cuda"))
+    wide = torch.zeros((1, 1025, 1025), dtype=torch.float64, device="cuda")
     q, qx, qy = _mcc_inputs(torch.from_numpy(_mcc_counts(rng, 32)).to("cuda"))
     before = second_eigenvalue.launches
-    with pytest.raises(ValueError, match="L <= 32"):
-        second_eigenvalue(p, px, py)
+    with pytest.raises(ValueError, match="L <= 1024"):
+        second_eigenvalue(wide, wide[:, 0], wide[:, 0])
     with pytest.raises(ValueError, match="float64"):
         second_eigenvalue(q.float(), qx.float(), qy.float())
     with pytest.raises(ValueError, match="contiguous"):

@@ -313,9 +313,10 @@ def _uint8(n, shape=SHAPE, seed=5):
 @pytest.mark.parametrize("shape", [(3, *SHAPE), SHAPE])
 def test_plan_call_records_run_prepare_count_tail(tracer, shape):
     """A plan call is one ``plan.run`` (batch, scheme) whose children are,
-    in order, ``plan.prepare``, ``plan.count`` and ``plan.tail``
-    (matrices), all inside it; f14's ``haralick.eigvalsh`` (matrices,
-    solver: the plain version's eigvalsh on the CPU) lies inside the tail."""
+    in order, ``plan.prepare``, ``plan.count`` (hist, copies: the plain
+    version's count on the CPU) and ``plan.tail`` (matrices), all inside it;
+    f14's ``haralick.eigvalsh`` (matrices, solver: the plain version's
+    eigvalsh on the CPU, chunks: one call of it) lies inside the tail."""
     plan = compile_plan(MAIN_SPEC, shape, features=True, device="cpu")
     tracer.clear()
     plan(_uint8(1, shape)[0])
@@ -325,9 +326,9 @@ def test_plan_call_records_run_prepare_count_tail(tracer, shape):
     batch = shape[0] if len(shape) == 3 else 1
     assert run.parent is None and run.attrs == {"batch": batch, "scheme": plan.spec.scheme}
     assert {s.parent for s in (prep, count, tail)} == {run.id} and eig.parent == tail.id
-    assert prep.attrs == {} and count.attrs == {}
+    assert prep.attrs == {} and count.attrs == {"hist": "plain", "copies": 0}
     assert tail.attrs == {"matrices": 2 * batch}
-    assert eig.attrs == {"matrices": 2 * batch, "solver": "eigvalsh"}
+    assert eig.attrs == {"matrices": 2 * batch, "solver": "eigvalsh", "chunks": 1}
     assert run.t0 <= prep.t0 <= prep.t1 <= count.t0 <= count.t1 <= tail.t0 <= tail.t1 <= run.t1
     assert tail.t0 <= eig.t0 <= eig.t1 <= tail.t1
 
