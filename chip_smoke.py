@@ -53,6 +53,17 @@ Phases, each printing one JSON line:
    images at distance 1 in four directions, against its plain version
    within 1e-12, with its ms beside its bound and the plain version's.
    ``python3 chip_smoke.py mcc`` builds it and runs this phase alone.
+   Then ``tail``: f1-f13 (``haralick_tail``) against its plain version on
+   the same 260 100 matrices, the 32 of a features-4096 call (also after
+   the plan's float32 step) and the 32 of an L = 256 call: f1, f2 and
+   f4-f12 within 1e-12 and f3 within 1e-9 of each feature's largest
+   magnitude, f13 squared within 1e-12, P and its marginals within
+   L 2^-53, one launch each and twice the same bits; its
+   CUDA-event ms with and without P beside its bound (bytes over the
+   memory rate) and the plain version's ms; a launch allocates only its
+   outputs. The main path must launch it once each for glcm_features, the
+   texture map and the volumes. ``python3 chip_smoke.py tail`` builds it and
+   runs this phase alone.
 7. ``histogram``: ``kernels.histogram`` on the 16384² image binned to
    L = 32 (the contended case) and on the random stack[4] binned to
    L = 256, with launch counts, exact against the plain version and
@@ -342,6 +353,7 @@ from repro_torch.kernels.mcc_kernel import (  # noqa: E402
     second_eigenvalue_plain,
 )
 from repro_torch.kernels.ops import default_slab_d, default_tile_h  # noqa: E402
+from repro_torch.kernels.tail_kernel import haralick_tail, haralick_tail_plain  # noqa: E402
 from repro_torch.launch.mesh import make_compat_mesh, make_host_mesh  # noqa: E402
 from repro_torch.models import build_model, describe  # noqa: E402
 from repro_torch.models.common import param_count  # noqa: E402
@@ -389,7 +401,8 @@ FP64_OPS_PER_S = 33.5e12  # float64 outside the tensor cores (f14's eigensolver)
 LEVELS = 32
 FEATURE_RTOL, FEATURE_ATOL, F14_ATOL = 1e-5, 1e-6, 1e-4
 DEV = torch.device("cuda", 0)
-KERNELS = (glcm_vote, glcm_fused, glcm_window, glcm_volume, histogram, second_eigenvalue)
+KERNELS = (glcm_vote, glcm_fused, glcm_window, glcm_volume, histogram, second_eigenvalue,
+           haralick_tail)
 
 # The texture map (benchmarks/texture_map.py's geometry at the paper's size)
 # and the volumes of the main path.
@@ -816,10 +829,11 @@ def phase_main_path(stack: torch.Tensor, big: torch.Tensor, vol: torch.Tensor) -
     vfeats = _drive(out, "volume", lambda: glcm_features(vol, LEVELS, VOLUME_PAIRS, ndim=3))
     vmat = _drive(out, "volume_glcm", lambda: glcm(
         vol[0], LEVELS, theta=VOLUME_DIRECTION, ndim=3, quantize="uniform"))
-    # f14 at L = 32: one launch of its eigensolver a call with features.
-    mcc = {p: out[f"{p}_launches"]["second_eigenvalue"] for p in ("features", "texture", "volume")}
-    require(all(n == 1 for n in mcc.values()),
-            f"second_eigenvalue launched {mcc} times; expected once a call")
+    # f1-f13 and f14 at L = 32: one launch of the tail kernel and one of the
+    # eigensolver a call with features.
+    for kernel in ("haralick_tail", "second_eigenvalue"):
+        n = {p: out[f"{p}_launches"][kernel] for p in ("features", "texture", "volume")}
+        require(all(k == 1 for k in n.values()), f"{kernel} launched {n} times; expected once a call")
     emit({"phase": "main_path", **out,
           "features_shape": list(feats.shape), "glcm_shape": list(mat.shape),
           "texture_shape": list(texture.shape), "tiles_shape": list(tiles.shape),
@@ -1018,7 +1032,8 @@ def phase_texture_checks(stack, main) -> dict:
     tplan = compile_plan(tspec, tuple(rnd.shape))
     require(tplan.spec.scheme == "cuda" and not tplan.backend.caps.region_grid,
             f"tiles resolved to {tplan.spec.scheme}")
-    _only(main["texture_launches"], ("glcm_window", "second_eigenvalue"), "texture map")
+    _only(main["texture_launches"], ("glcm_window", "haralick_tail", "second_eigenvalue"),
+          "texture map")
     _only(main["tiles_launches"], ("glcm_vote",), "tiles")
 
     # Window kernel vs plain on the texture map's image and range.
@@ -1067,7 +1082,8 @@ def phase_volume_checks(vol, main) -> dict:
     one_scheme = compile_plan(one, tuple(vol[0].shape)).spec.scheme
     require(scheme == "cuda_volume" and one_scheme == "cuda_volume",
             f"volumes resolved to {scheme}, {one_scheme}")
-    _only(main["volume_launches"], ("glcm_volume", "second_eigenvalue"), "volume features")
+    _only(main["volume_launches"], ("glcm_volume", "haralick_tail", "second_eigenvalue"),
+          "volume features")
     _only(main["volume_glcm_launches"], ("glcm_volume",), "volume glcm")
 
     offsets = DIRECTIONS_3D
@@ -1293,6 +1309,111 @@ def phase_mcc_alone() -> dict:
     return phase_mcc(smooth, rnd)
 
 
+# ---------------------------------------------------------------------------
+# f1-f13 (haralick_tail)
+# ---------------------------------------------------------------------------
+
+# The kernel against the plain version: a feature's gap over its largest
+# magnitude. f3 is a difference of sums of order mu_x mu_y over sd_x sd_y,
+# which a texture-map window can bring down to ~1e-3 (9.2e-11 on a smooth
+# map); f13 = sqrt(1 - exp(-2 d)) magnifies the rounding of d without bound
+# near d = 0, so its square is held instead.
+TAIL_RTOL = 1e-12  # f1, f2, f4-f12 and f13 squared
+TAIL_RTOL_F3 = 1e-9
+TAIL_P_ULP = 2.0**-53  # P, px and py within L of these: a marginal sums L entries
+
+
+def _tail_err(counts: torch.Tensor, what: str, float32_step: bool = False) -> dict:
+    """Launch once, exactly once, again with the same bits, and hold the
+    kernel to the plain version: each feature's gap over its largest
+    magnitude, and P, px and py."""
+    before = haralick_tail.launches
+    got = haralick_tail(counts, float32_step=float32_step, with_p=True)
+    require(haralick_tail.launches == before + 1, f"{what}: launches")
+    again = haralick_tail(counts, float32_step=float32_step, with_p=True)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two launches differ")
+    want = haralick_tail_plain(counts, float32_step=float32_step, with_p=True)
+    scale = want[0].abs().amax(dim=0).clamp_min(1e-300)
+    rel = [float(r) for r in (got[0] - want[0]).abs().amax(dim=0) / scale]
+    f13_sq = float((got[0][:, 12] ** 2 - want[0][:, 12] ** 2).abs().max())
+    p_err = max(float((g - w).abs().max()) for g, w in zip(got[1:], want[1:]))
+    p_tol = counts.shape[-1] * TAIL_P_ULP
+    require(max(rel[:2] + rel[3:12] + [f13_sq]) <= TAIL_RTOL and rel[2] <= TAIL_RTOL_F3,
+            f"{what}: features apart by {rel} of their largest magnitudes, f13^2 by {f13_sq}")
+    require(p_err <= p_tol, f"{what}: P, px, py apart by {p_err} > {p_tol}")
+    return {"rel_err": rel, "f13_squared_err": f13_sq, "p_max_abs_err": p_err}
+
+
+def _tail_bytes(n: int, levels: int, with_p: bool) -> int:
+    """Bytes a launch must move: the int32 counts in, 13 float64 features
+    out and, with f14, P, px and py out."""
+    return n * levels * levels * 4 + n * 13 * 8 + (n * (levels**2 + 2 * levels) * 8 if with_p else 0)
+
+
+def phase_tail(smooth: torch.Tensor, rnd: torch.Tensor) -> dict:
+    """haralick_tail against its plain version on the texture map's 260 100
+    matrices of a smooth and a random 4096² image and on the 32 matrices of
+    a call of features-4096 (8 images, 4 smooth and 4 random), with and
+    without the plan's float32 step, and on the 32 L = 256 matrices of a
+    call of features-4096-L256; each one launch, twice the same bits. Its
+    CUDA-event ms beside its bound (bytes) and the plain version's ms; a
+    launch allocates only its outputs. (The ``cuda`` tests of
+    ``tests/test_torch_tail_kernel.py`` hold it at every L and on edge
+    cases.)"""
+    out = {}
+    spec = GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform", region="window",
+                    region_shape=WINDOW, region_stride=WINDOW_STRIDE)
+    plan = compile_plan(spec, tuple(smooth.shape))
+    stack = torch.stack([smooth, rnd] * 4)
+    batch = compile_plan(GLCMSpec(levels=LEVELS, pairs=PAPER_PAIRS, quantize="uniform"),
+                         tuple(stack.shape))(stack).reshape(-1, LEVELS, LEVELS)
+    wide = GLCMSpec(levels=256, pairs=((1, 0), (1, 45), (1, 90), (1, 135)), quantize="uniform")
+    cases = (("smooth", plan(smooth).reshape(-1, LEVELS, LEVELS)),
+             ("random", plan(rnd).reshape(-1, LEVELS, LEVELS)),
+             ("batch32", batch),
+             ("wide", compile_plan(wide, tuple(stack.shape))(stack).reshape(-1, 256, 256)))
+    for name, counts in cases:
+        n, L = counts.shape[0], counts.shape[-1]
+        out[f"{name}_check"] = _tail_err(counts, f"haralick_tail {name}")
+        if name == "batch32":
+            out["batch32_float32_step_check"] = _tail_err(counts, "haralick_tail batch32 float32",
+                                                          float32_step=True)
+        for with_p in (True, False):
+            key = name if with_p else f"{name}_no_p"
+            out[f"{key}_ms"] = cuda_ms(lambda: haralick_tail(counts, with_p=with_p), reps=10)
+            out[f"{key}_plain_ms"] = cuda_ms(
+                lambda: haralick_tail_plain(counts, with_p=with_p), reps=3)
+            nbytes = _tail_bytes(n, L, with_p)
+            out[f"{key}_bytes"] = nbytes
+            out[f"{key}_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        out[f"{name}_matrices"] = n
+    counts = cases[1][1]
+    n = counts.shape[0]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    haralick_tail(counts, with_p=True)
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(DEV) - before
+    outputs = n * (13 + LEVELS**2 + 2 * LEVELS) * 8
+    require(out["peak_bytes"] <= outputs + 4 * 2**21,  # the allocator's 2 MiB rounding
+            f"haralick_tail allocated {out['peak_bytes']} bytes for {outputs} bytes of outputs")
+    emit({"phase": "tail", **out})
+    return out
+
+
+def phase_tail_alone() -> dict:
+    """``python3 chip_smoke.py tail``: build haralick_tail (its ptxas lines),
+    then the phase on the first smooth and the first random texture."""
+    reports = build.build(("haralick_tail",))
+    emit({"phase": "build", "ptxas": {n: [ln.strip() for ln in r.splitlines()
+                                          if "entry" in ln or "Used" in ln or "spill" in ln]
+                                      for n, r in reports.items()}})
+    smooth = torch.from_numpy(smooth_texture(4096, seed=0).astype(np.float32)).to(DEV)
+    rnd = torch.from_numpy(random_texture(4096, seed=0).astype(np.float32)).to(DEV)
+    return phase_tail(smooth, rnd)
+
+
 def _volume_index(vol, offsets, quant) -> torch.Tensor:
     """The linearised (volume, k, ref, assoc) index of every in-bounds pair,
     one int64 per pair (about 14 GB at the main path's shape)."""
@@ -1400,7 +1521,7 @@ def phase_temporal(frames_dev) -> dict:
     host_frames = [f for f in frames_dev.cpu().numpy()]
     feats = _drive(out, "stream_features", lambda: torch.stack(list(
         glcm_feature_stream(host_frames, spec=spec, temporal_window=STREAM_WINDOW))))
-    _only(out["stream_features_launches"], ("glcm_fused", "second_eigenvalue"),
+    _only(out["stream_features_launches"], ("glcm_fused", "haralick_tail", "second_eigenvalue"),
           "temporal stream")
     require(out["stream_features_launches"]["glcm_fused"] == VIDEO_FRAMES,
             f"temporal stream launched glcm_fused {out['stream_features_launches']} times")
@@ -2058,7 +2179,7 @@ def phase_lint() -> dict:
         require(plan.lint == (), f"{name}: lint findings {plan.lint}")
         require(not plan.tuned, f"{name}: the plan is tuned; lint the untuned one")
         record = op_lint.record_plan(plan, dtype)
-        kernels = (kernel, "second_eigenvalue") if features else (kernel,)
+        kernels = (kernel, "haralick_tail", "second_eigenvalue") if features else (kernel,)
         _only(record.launches, kernels, f"{name} lint record")
         require(all(record.launches[k] == 1 for k in kernels), f"{name}: {record.launches}")
         if dtype != torch.float32:  # the main path's own input dtype, linted too
@@ -2177,7 +2298,7 @@ def _tune_one(name, spec, features, x, smooth) -> dict:
     got = tuned(x)
     torch.cuda.synchronize()
     counts_run = launches()
-    _only(counts_run, kernels + (("second_eigenvalue",) if features else ()),
+    _only(counts_run, kernels + (("haralick_tail", "second_eigenvalue") if features else ()),
           f"{name}: tuned plan")
     for kernel in kernels:
         require(counts_run[kernel] > 0, f"{name}: tuned plan never launched {kernel}")
@@ -3999,7 +4120,7 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     alone = {"lm": phase_lm, "train": phase_train, "mesh": phase_mesh, "dryrun": phase_dryrun,
-             "mcc": phase_mcc_alone}
+             "mcc": phase_mcc_alone, "tail": phase_tail_alone}
     if len(sys.argv) == 2 and sys.argv[1] in alone:   # a phase alone
         timed("device", phase_device)
         timed(sys.argv[1], alone[sys.argv[1]])
@@ -4021,6 +4142,7 @@ def main() -> int:
     t.update(timed("texture_timing", phase_texture_timing, stack, tchk))
     t.update(timed("volume_timing", phase_volume_timing, vol, vchk))
     mcc = timed("mcc", phase_mcc, stack[0], stack[4])
+    ftail = timed("tail", phase_tail, stack[0], stack[4])
     for chk_out in (tchk, vchk):  # free the counts; keep the numbers
         chk_out.pop("counts")
     h = timed("histogram", phase_histogram, stack, big)
@@ -4116,6 +4238,14 @@ def main() -> int:
          "ms": mcc["smooth_ms"], "plain_ms": mcc["smooth_plain_ms"],
          "bound_ms": mcc["bound_ms"], "bound_by": mcc["bound_by"],
          "library_ms": mcc["smooth_library_ms"]},
+        # f1-f13 on the texture map's 260 100 matrices (random), P, px and
+        # py written for f14; no library call computes them.
+        {"name": "haralick_tail", "route": "cuda",
+         "source": "src/repro_torch/csrc/haralick_tail.cu", "replaces": None,
+         "launches": main_run["texture_launches"]["haralick_tail"],
+         "max_rel_err": max(max(ftail[f"{c}_check"]["rel_err"]) for c in ("smooth", "random")),
+         "ms": ftail["random_ms"], "plain_ms": ftail["random_plain_ms"],
+         "bound_ms": ftail["random_bound_ms"], "bound_by": "bytes", "library_ms": None},
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,6 +54,7 @@ from repro_torch.analysis import scopes as _scopes
 from repro_torch.kernels.glcm_kernel import glcm_fused, glcm_volume, glcm_vote, glcm_window
 from repro_torch.kernels.histogram_kernel import histogram
 from repro_torch.kernels.mcc_kernel import second_eigenvalue
+from repro_torch.kernels.tail_kernel import haralick_tail
 
 __all__ = [
     "Finding",
@@ -78,7 +79,8 @@ __all__ = [
 ]
 
 # Every kernel wrapper; each counts its launches in ``.launches``.
-KERNELS = (glcm_vote, glcm_fused, glcm_window, glcm_volume, histogram, second_eigenvalue)
+KERNELS = (glcm_vote, glcm_fused, glcm_window, glcm_volume, histogram, second_eigenvalue,
+           haralick_tail)
 
 
 # ---------------------------------------------------------------------------
@@ -667,9 +669,10 @@ register_rule(Rule(
 
 def _check_device_kernel_launches(ctx: LintContext) -> list[str]:
     out = []
-    # Only the counting kernels: f14's eigensolver launches for any plan
-    # that selects it, whatever produced the counts.
-    n = sum(v for k, v in ctx.record.launches.items() if k != second_eigenvalue.__name__)
+    # Only the counting kernels: the feature tail's kernels launch for any
+    # plan with features, whatever produced the counts.
+    tail = (second_eigenvalue.__name__, haralick_tail.__name__)
+    n = sum(v for k, v in ctx.record.launches.items() if k not in tail)
     if n == 0:
         out.append(
             "CUDA plan of a caps.device_kernel backend launched no kernel — "

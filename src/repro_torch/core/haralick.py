@@ -10,6 +10,14 @@ would depend on the summation order, which differs between the CPU, the
 card and the reference. In float64 they are the same on every device to
 well below float32 rounding.
 
+Routes. ``haralick_features`` computes f1–f13 of float GLCMs with the
+plain PyTorch formulas (``tail_kernel.f1_to_f13``, beside the kernel they
+define). int32 counts, which plans hand it, take the tail instead: on the
+card, for L ≤ 1024, one ``haralick_tail`` launch computes f1–f13 from the
+counts and writes the P and marginals f14 reads; on the CPU, and wider, the
+kernel's plain version does. f14 (``_f14``) goes to the eigensolver kernel of ``mcc_kernel`` up
+to L = 1024 (its plain version on the CPU), to chunked eigvalsh past it.
+
 f1  Angular Second Moment (Energy)     f8  Sum Entropy
 f2  Contrast                           f9  Entropy
 f3  Correlation                        f10 Difference Variance
@@ -24,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import mcc_kernel as _mcc
+from repro_torch.kernels import tail_kernel as _tail
 from repro_torch.obs import trace as _obs_trace
 
 __all__ = ["haralick_features", "FEATURE_NAMES", "normalize_glcm"]
@@ -53,10 +62,6 @@ def normalize_glcm(glcm: torch.Tensor) -> torch.Tensor:
     return glcm / glcm.sum(dim=(-2, -1), keepdim=True).clamp_min(_EPS)
 
 
-def _entropy(p: torch.Tensor, dim) -> torch.Tensor:
-    return -torch.sum(p * torch.log(p + _EPS), dim=dim)
-
-
 def _select_indices(select: tuple[str, ...] | None) -> tuple[int, ...]:
     if select is None:
         return tuple(range(len(FEATURE_NAMES)))
@@ -73,93 +78,29 @@ def _select_indices(select: tuple[str, ...] | None) -> tuple[int, ...]:
     return tuple(idx)
 
 
-def _features(p: torch.Tensor, select: tuple[int, ...]) -> torch.Tensor:
-    """(N, L, L) normalized float64 GLCMs → (N, len(select)) features.
+def _f14(p: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    """(N,) f14 of (N, L, L) normalized float64 GLCMs and their marginals.
 
-    f1–f13 are O(L²); f14's O(L³) eigensolve runs only when index 13 is
-    selected.
+    f14 is the sqrt of the second-largest eigenvalue of Q, whose spectrum
+    equals that of the symmetric PSD matrix A Aᵀ, A = P/√(px py). Up to
+    L = 1024 a kernel solves it on the card (the CPU runs the plain
+    version); wider matrices take the plain version, eigvalsh in chunks, on
+    either device (``chunks`` eigvalsh calls). On the card each reads its
+    error code back, so there the span is also the host's wait for the work
+    queued before it; the kernel's launch waits for nothing.
     """
     n, L = p.shape[0], p.shape[-1]
-    i = torch.arange(L, dtype=p.dtype, device=p.device)
-    ii, jj = i[:, None], i[None, :]
-    both = (-2, -1)
-
-    px = p.sum(dim=2)  # (N, L) marginal over j
-    py = p.sum(dim=1)  # (N, L) marginal over i
-    mu_x = (i * px).sum(dim=1)
-    mu_y = (i * py).sum(dim=1)
-    sd_x = torch.sqrt(((i - mu_x[:, None]) ** 2 * px).sum(dim=1).clamp_min(0.0))
-    sd_y = torch.sqrt(((i - mu_y[:, None]) ** 2 * py).sum(dim=1).clamp_min(0.0))
-
-    # p_{x+y}(k), k = 0..2L-2  and  p_{x-y}(k), k = 0..L-1
-    ii_i = torch.arange(L, device=p.device)
-    sum_idx = (ii_i[:, None] + ii_i[None, :]).reshape(-1)
-    diff_idx = (ii_i[:, None] - ii_i[None, :]).abs().reshape(-1)
-    flat = p.reshape(n, -1)
-    p_sum = torch.zeros(n, 2 * L - 1, dtype=p.dtype, device=p.device)
-    p_sum.index_add_(1, sum_idx, flat)
-    p_diff = torch.zeros(n, L, dtype=p.dtype, device=p.device)
-    p_diff.index_add_(1, diff_idx, flat)
-
-    f1 = (p**2).sum(dim=both)
-    f2 = ((ii - jj) ** 2 * p).sum(dim=both)
-    f3 = ((ii * jj * p).sum(dim=both) - mu_x * mu_y) / (sd_x * sd_y).clamp_min(_EPS)
-    # A marginal that sits on one level has no variance, and f3 is 0/0: its
-    # numerator is then cancellation noise (~1e-14) over the 1e-12 guard, a
-    # value of up to ~0.1 that depends on the order of summation (CPU and
-    # card disagree). The pairwise variance ½·Σ_ik (i-k)² p_i p_k is exactly
-    # 0 for such a marginal (every term holds a zero factor), so those
-    # matrices get f3 = 0 — the value of the exact numerator over the guard.
-    d2 = (ii - jj) ** 2
-    spread_x = ((px @ d2) * px).sum(dim=1) > 0
-    spread_y = ((py @ d2) * py).sum(dim=1) > 0
-    f3 = torch.where(spread_x & spread_y, f3, torch.zeros_like(f3))
-    mu = (p * ii).sum(dim=both)  # Haralick's μ in f4 (mean of joint over i)
-    f4 = ((ii - mu[:, None, None]) ** 2 * p).sum(dim=both)
-    f5 = (p / (1.0 + (ii - jj) ** 2)).sum(dim=both)
-    ks = torch.arange(2 * L - 1, dtype=p.dtype, device=p.device)
-    f6 = (ks * p_sum).sum(dim=1)
-    f8 = _entropy(p_sum, 1)
-    f7 = ((ks - f6[:, None]) ** 2 * p_sum).sum(dim=1)
-    f9 = _entropy(p, both)
-    diff_mean = (i * p_diff).sum(dim=1)
-    f10 = ((i - diff_mean[:, None]) ** 2 * p_diff).sum(dim=1)
-    f11 = _entropy(p_diff, 1)
-
-    # Information measures of correlation.
-    hx = _entropy(px, 1)
-    hy = _entropy(py, 1)
-    hxy = f9
-    pxy_outer = px[:, :, None] * py[:, None, :]
-    hxy1 = -(p * torch.log(pxy_outer + _EPS)).sum(dim=both)
-    hxy2 = -(pxy_outer * torch.log(pxy_outer + _EPS)).sum(dim=both)
-    f12 = (hxy - hxy1) / torch.maximum(hx, hy).clamp_min(_EPS)
-    f13 = torch.sqrt((1.0 - torch.exp(-2.0 * (hxy2 - hxy))).clamp_min(0.0))
-
-    feats = [f1, f2, f3, f4, f5, f6, f7, f8, f9, f10, f11, f12, f13]
-
-    if 13 in select:
-        # f14: sqrt of the second-largest eigenvalue of Q, whose spectrum
-        # equals that of the symmetric PSD matrix A Aᵀ, A = P/√(px py).
-        # Up to L = 1024 a kernel solves it on the card (the CPU runs the
-        # plain version); wider matrices take the plain version, eigvalsh
-        # in chunks, on either device (``chunks`` eigvalsh calls). On the
-        # card each reads its error code back, so there the span is also the
-        # host's wait for the work queued before it; the kernel's launch
-        # waits for nothing.
-        kernel = L <= _mcc.MAX_LEVELS
-        on_card = kernel and p.device.type == "cuda"
-        chunks = 0 if on_card else _mcc.eigvalsh_chunks(n, L)
-        with _obs_trace.get_tracer().span("haralick.eigvalsh", matrices=n,
-                                          solver="kernel" if on_card else "eigvalsh",
-                                          chunks=chunks):
-            if kernel:
-                second = _mcc.second_eigenvalue(p.contiguous(), px, py)
-            else:
-                second = _mcc.second_eigenvalue_plain(p, px, py)
-        feats.append(torch.sqrt(second.clamp_min(0.0)))
-
-    return torch.stack([feats[k] for k in select], dim=-1)
+    kernel = L <= _mcc.MAX_LEVELS
+    on_card = kernel and p.device.type == "cuda"
+    chunks = 0 if on_card else _mcc.eigvalsh_chunks(n, L)
+    with _obs_trace.get_tracer().span("haralick.eigvalsh", matrices=n,
+                                      solver="kernel" if on_card else "eigvalsh",
+                                      chunks=chunks):
+        if kernel:
+            second = _mcc.second_eigenvalue(p.contiguous(), px, py)
+        else:
+            second = _mcc.second_eigenvalue_plain(p, px, py)
+    return torch.sqrt(second.clamp_min(0.0))
 
 
 def haralick_features(
@@ -167,6 +108,7 @@ def haralick_features(
     *,
     assume_normalized: bool = False,
     select: tuple[str, ...] | None = None,
+    float32_step: bool = False,
 ) -> torch.Tensor:
     """GLCM(s) → Haralick features, float32.
 
@@ -175,11 +117,31 @@ def haralick_features(
     :data:`FEATURE_NAMES` — output columns follow its order, and the O(L³)
     ``max_correlation_coefficient`` is skipped when not selected. The
     default ``None`` computes all 14 in canonical order.
+
+    int32 counts, as plans hand them, take the tail
+    (``tail_kernel.haralick_tail``): on the card one kernel launch for
+    f1–f13 and the P that f14 then reads, on the CPU and past
+    ``tail_kernel.MAX_LEVELS`` its plain version, which gives the features
+    of the same counts in float64 bit for bit. ``float32_step`` (int32
+    counts only) first normalizes them in float32, as a plan with
+    ``normalize`` does. Any other GLCM is normalized in float64.
     """
     idx = _select_indices(select)
-    p = glcm.to(torch.float64)
-    if not assume_normalized:
-        p = normalize_glcm(p)
-    flat = p.reshape((-1,) + tuple(p.shape[-2:]))
-    feats = _features(flat, idx)
-    return feats.reshape(tuple(p.shape[:-2]) + (len(idx),)).to(torch.float32)
+    lead, L = tuple(glcm.shape[:-2]), glcm.shape[-1]
+    flat = glcm.reshape(-1, L, L)
+    if glcm.dtype == torch.int32 and not assume_normalized:
+        tail = _tail.haralick_tail if 2 <= L <= _tail.MAX_LEVELS else _tail.haralick_tail_plain
+        feats, p, px, py = tail(flat.contiguous(), float32_step=float32_step, with_p=13 in idx)
+    elif float32_step:
+        raise ValueError(f"float32_step normalizes int32 counts, got {glcm.dtype}"
+                         + (" with assume_normalized" if assume_normalized else ""))
+    else:
+        p = flat.to(torch.float64)
+        if not assume_normalized:
+            p = normalize_glcm(p)
+        feats, px, py = _tail.f1_to_f13(p)
+    if 13 in idx:
+        feats = torch.cat([feats, _f14(p, px, py)[:, None]], dim=1)
+    if idx != tuple(range(feats.shape[1])):
+        feats = feats[:, list(idx)]
+    return feats.reshape(lead + (len(idx),)).to(torch.float32)

@@ -67,7 +67,10 @@ cast), ``plan.count`` (the backend's count; on a host-native backend also
 the copy of the counts to the device; on the device path ``hist`` and
 ``copies``, the count's route by ``backends.count_route``, found at the
 plan's first traced call and kept with the plan) and ``plan.tail``
-(symmetric, normalize, Haralick features; ``matrices``), inside which f14's
+(symmetric, normalize, Haralick features; ``matrices``, and ``solver``: a
+plan with features hands its int32 counts to the tail through
+``core.haralick.haralick_features``, "kernel" where its kernel runs on the
+card, else "plain"; fixed when the plan is compiled), inside which f14's
 eigensolver records ``haralick.eigvalsh`` (``matrices``, ``solver``:
 "kernel" where the card's kernel solves it, else "eigvalsh"; ``chunks``,
 the eigvalsh calls, 0 on the kernel). They are host times: no span
@@ -112,6 +115,7 @@ from repro_torch.core.quantize import (
 )
 from repro_torch.core.spec import GLCMSpec
 from repro_torch.core.stream_state import GLCMStreamPlan
+from repro_torch.kernels import tail_kernel as _tail
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import trace as _obs_trace
 
@@ -484,15 +488,22 @@ def compile_plan(
     fused = resolved.quantize == "uniform" and backend.caps.fused_quantize
     vmin, vmax = resolved.vrange if resolved.vrange is not None else (None, None)
 
+    # The features take the int32 counts straight to the tail: its kernel on
+    # the card ("kernel"), its plain version on the CPU ("plain"), the
+    # ``solver`` of the ``plan.tail`` span.
+    on_kernel = bool(features) and device.type == "cuda" and resolved.levels <= _tail.MAX_LEVELS
+    solver = "kernel" if on_kernel else "plain"
+
     def tail(mats: torch.Tensor) -> torch.Tensor:
         if resolved.symmetric:
             mats = mats + mats.transpose(-1, -2)
+        if features:
+            with scope("tail"):  # float64 inside, by design (core.haralick)
+                return haralick_features(mats, select=select,
+                                         float32_step=resolved.normalize)
         if resolved.normalize:
             mats = mats.to(torch.float32)   # counts stay int32 until they divide
             mats = mats / mats.sum(dim=(-2, -1), keepdim=True).clamp_min(1.0)
-        if features:
-            with scope("tail"):  # float64 inside, by design (core.haralick)
-                mats = haralick_features(mats, select=select)
         return mats
 
     def prepare(stack: torch.Tensor):
@@ -551,7 +562,7 @@ def compile_plan(
                 stack, qargs = prepare(x if batched else x[None])
             with tr.span("plan.count", **(route(stack, qargs) if tr.enabled else {})):
                 counts = _backends.compute_regions(backend, stack, resolved, quant=qargs)
-            with tr.span("plan.tail", matrices=n_mats):
+            with tr.span("plan.tail", matrices=n_mats, solver=solver):
                 mats = tail(counts)
         return mats if batched else mats[0]
 
@@ -577,7 +588,7 @@ def compile_plan(
                 with tr.span("plan.count"):
                     counts = backend.host_fn(stack, resolved, qargs)
                     mats = torch.from_numpy(np.asarray(counts, np.int32)).to(device)
-            with tr.span("plan.tail", matrices=n_mats):
+            with tr.span("plan.tail", matrices=n_mats, solver=solver):
                 mats = tail(mats)
         return mats if batched else mats[0]
 

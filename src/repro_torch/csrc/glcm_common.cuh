@@ -1,7 +1,7 @@
 // Device helpers shared by the kernels of repro_torch (glcm_fused.cu,
 // glcm_window.cu, glcm_volume.cu, histogram.cu; haralick_mcc.cu takes
-// device_attr). Each kernel source is its own shared
-// library; this header is compiled into each of them, and
+// device_attr, haralick_tail.cu allow_smem). Each kernel source is its own
+// shared library; this header is compiled into each of them, and
 // kernels/build.py hashes it with every source that includes it.
 
 #pragma once

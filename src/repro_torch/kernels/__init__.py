@@ -7,6 +7,9 @@
   histogram_kernel  the level-histogram kernel (histogram), with its count
   mcc_kernel        f14's eigensolver (second_eigenvalue: the second-largest
                     eigenvalue of each Haralick Q matrix), with its count
+  tail_kernel       f1–f13 of the Haralick features from int32 counts
+                    (haralick_tail), with its count, and their plain
+                    PyTorch formulas (f1_to_f13)
   ops               public wrappers: pair planes + binning + vote
                     (glcm_cuda), the fused pass (glcm_cuda_multi), texture
                     maps (glcm_cuda_windowed), volumes (glcm_cuda_volume),

@@ -33,7 +33,8 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("glcm_vote", "glcm_fused", "glcm_window", "glcm_volume", "histogram", "haralick_mcc")
+KERNELS = ("glcm_vote", "glcm_fused", "glcm_window", "glcm_volume", "histogram", "haralick_mcc",
+           "haralick_tail")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-prec-div=true", "-ftz=false",

@@ -292,7 +292,7 @@ def test_build_flags_keep_ieee_arithmetic():
     assert "-prec-div=true" in flags and "-ftz=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert set(build.KERNELS) == {"glcm_vote", "glcm_fused", "glcm_window", "glcm_volume",
-                                  "histogram", "haralick_mcc"}
+                                  "histogram", "haralick_mcc", "haralick_tail"}
     for name in build.KERNELS:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")

@@ -314,8 +314,8 @@ def _uint8(n, shape=SHAPE, seed=5):
 def test_plan_call_records_run_prepare_count_tail(tracer, shape):
     """A plan call is one ``plan.run`` (batch, scheme) whose children are,
     in order, ``plan.prepare``, ``plan.count`` (hist, copies: the plain
-    version's count on the CPU) and ``plan.tail`` (matrices), all inside it;
-    f14's ``haralick.eigvalsh`` (matrices, solver: the plain version's
+    version's count on the CPU) and ``plan.tail`` (matrices, solver: the
+    PyTorch tail on the CPU), all inside it; f14's ``haralick.eigvalsh`` (matrices, solver: the plain version's
     eigvalsh on the CPU, chunks: one call of it) lies inside the tail."""
     plan = compile_plan(MAIN_SPEC, shape, features=True, device="cpu")
     tracer.clear()
@@ -327,7 +327,7 @@ def test_plan_call_records_run_prepare_count_tail(tracer, shape):
     assert run.parent is None and run.attrs == {"batch": batch, "scheme": plan.spec.scheme}
     assert {s.parent for s in (prep, count, tail)} == {run.id} and eig.parent == tail.id
     assert prep.attrs == {} and count.attrs == {"hist": "plain", "copies": 0}
-    assert tail.attrs == {"matrices": 2 * batch}
+    assert tail.attrs == {"matrices": 2 * batch, "solver": "plain"}
     assert eig.attrs == {"matrices": 2 * batch, "solver": "eigvalsh", "chunks": 1}
     assert run.t0 <= prep.t0 <= prep.t1 <= count.t0 <= count.t1 <= tail.t0 <= tail.t1 <= run.t1
     assert tail.t0 <= eig.t0 <= eig.t1 <= tail.t1
