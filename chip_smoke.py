@@ -401,8 +401,6 @@ FP64_OPS_PER_S = 33.5e12  # float64 outside the tensor cores (f14's eigensolver)
 LEVELS = 32
 FEATURE_RTOL, FEATURE_ATOL, F14_ATOL = 1e-5, 1e-6, 1e-4
 DEV = torch.device("cuda", 0)
-KERNELS = (glcm_vote, glcm_fused, glcm_window, glcm_volume, histogram, second_eigenvalue,
-           haralick_tail)
 
 # The texture map (benchmarks/texture_map.py's geometry at the paper's size)
 # and the volumes of the main path.
@@ -452,12 +450,12 @@ def exact_counts(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
+    for k in build.wrappers():
         k.launches = 0
 
 
 def launches() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    return {k.__name__: k.launches for k in build.wrappers()}
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:

@@ -25,7 +25,8 @@ module *records one real call* instead:
   ``pallas_call`` boundary; ``host`` for the host-native round trip, the
   ``pure_callback``; ``tail`` for the float64 Haralick tail). The mode
   reads metadata only, so it adds no device sync. Kernel launches are the
-  deltas of the wrappers' ``.launches`` counters around the call.
+  deltas of the ``.launches`` counters of the wrappers of
+  ``kernels.build.TABLE`` around the call.
 * small queries over a :class:`PlanRecord` — :func:`op_names`,
   :func:`has_op`, :func:`int_image_ops` — the counterparts of
   ``primitive_names``, ``has_primitive`` and ``int_image_eqns``.
@@ -51,10 +52,8 @@ from torch.utils import _pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.analysis import scopes as _scopes
-from repro_torch.kernels.glcm_kernel import glcm_fused, glcm_volume, glcm_vote, glcm_window
-from repro_torch.kernels.histogram_kernel import histogram
+from repro_torch.kernels import build as _build
 from repro_torch.kernels.mcc_kernel import second_eigenvalue
-from repro_torch.kernels.tail_kernel import haralick_tail
 
 __all__ = [
     "Finding",
@@ -77,11 +76,6 @@ __all__ = [
     "register_rule",
     "registered_rules",
 ]
-
-# Every kernel wrapper; each counts its launches in ``.launches``.
-KERNELS = (glcm_vote, glcm_fused, glcm_window, glcm_volume, histogram, second_eigenvalue,
-           haralick_tail)
-
 
 # ---------------------------------------------------------------------------
 # The recorder
@@ -207,12 +201,13 @@ def record_call(fn, *args, inputs: Iterable[torch.Tensor] = ()) -> PlanRecord:
     process-wide, so launches another thread makes during the call count
     too."""
     dev = next((t.device for t in _tensors(args) if t.device.type == "cuda"), None)
-    before = [k.launches for k in KERNELS]
+    kernels = _build.wrappers()
+    before = [k.launches for k in kernels]
     with _scopes.recording() as rec, _Recorder(inputs, rec) as recorder:
         fn(*args)
     if dev is not None:
         torch.cuda.synchronize(dev)
-    launches = {k.__name__: k.launches - b for k, b in zip(KERNELS, before)}
+    launches = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
     return PlanRecord(ops=tuple(recorder.ops), launches=launches, entered=tuple(rec.entered))
 
 
@@ -669,10 +664,10 @@ register_rule(Rule(
 
 def _check_device_kernel_launches(ctx: LintContext) -> list[str]:
     out = []
-    # Only the counting kernels: the feature tail's kernels launch for any
-    # plan with features, whatever produced the counts.
-    tail = (second_eigenvalue.__name__, haralick_tail.__name__)
-    n = sum(v for k, v in ctx.record.launches.items() if k not in tail)
+    # Only the counting kernels: the feature kernels launch for any plan
+    # with features, whatever produced the counts.
+    features = {k.name for k in _build.TABLE if k.role == "features"}
+    n = sum(v for k, v in ctx.record.launches.items() if k not in features)
     if n == 0:
         out.append(
             "CUDA plan of a caps.device_kernel backend launched no kernel — "

@@ -12,11 +12,13 @@ well below float32 rounding.
 
 Routes. ``haralick_features`` computes f1–f13 of float GLCMs with the
 plain PyTorch formulas (``tail_kernel.f1_to_f13``, beside the kernel they
-define). int32 counts, which plans hand it, take the tail instead: on the
-card, for L ≤ 1024, one ``haralick_tail`` launch computes f1–f13 from the
-counts and writes the P and marginals f14 reads; on the CPU, and wider, the
-kernel's plain version does. f14 (``_f14``) goes to the eigensolver kernel of ``mcc_kernel`` up
-to L = 1024 (its plain version on the CPU), to chunked eigvalsh past it.
+define). int32 counts, which plans hand it, take the tail instead, and
+``tail_kernel.route`` says where it runs: on the card, within the kernel's
+range of L, one ``haralick_tail`` launch computes f1–f13 from the counts
+and writes the P and marginals f14 reads; on the CPU, and wider, the
+kernel's plain version does. f14 (``_f14``) takes the route's solver:
+the eigensolver kernel of ``mcc_kernel`` on the card, chunked eigvalsh
+elsewhere.
 
 f1  Angular Second Moment (Energy)     f8  Sum Entropy
 f2  Contrast                           f9  Entropy
@@ -31,7 +33,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import mcc_kernel as _mcc
 from repro_torch.kernels import tail_kernel as _tail
 from repro_torch.obs import trace as _obs_trace
 
@@ -82,24 +83,17 @@ def _f14(p: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
     """(N,) f14 of (N, L, L) normalized float64 GLCMs and their marginals.
 
     f14 is the sqrt of the second-largest eigenvalue of Q, whose spectrum
-    equals that of the symmetric PSD matrix A Aᵀ, A = P/√(px py). Up to
-    L = 1024 a kernel solves it on the card (the CPU runs the plain
-    version); wider matrices take the plain version, eigvalsh in chunks, on
-    either device (``chunks`` eigvalsh calls). On the card each reads its
-    error code back, so there the span is also the host's wait for the work
-    queued before it; the kernel's launch waits for nothing.
+    equals that of the symmetric PSD matrix A Aᵀ, A = P/√(px py). The
+    route's solver is a kernel on the card within its range of L, else
+    eigvalsh in chunks (``chunks`` eigvalsh calls). On the card each reads
+    its error code back, so there the span is also the host's wait for the
+    work queued before it; the kernel's launch waits for nothing.
     """
-    n, L = p.shape[0], p.shape[-1]
-    kernel = L <= _mcc.MAX_LEVELS
-    on_card = kernel and p.device.type == "cuda"
-    chunks = 0 if on_card else _mcc.eigvalsh_chunks(n, L)
-    with _obs_trace.get_tracer().span("haralick.eigvalsh", matrices=n,
-                                      solver="kernel" if on_card else "eigvalsh",
-                                      chunks=chunks):
-        if kernel:
-            second = _mcc.second_eigenvalue(p.contiguous(), px, py)
-        else:
-            second = _mcc.second_eigenvalue_plain(p, px, py)
+    n = p.shape[0]
+    route = _tail.route(p.device.type, p.shape[-1])
+    with _obs_trace.get_tracer().span("haralick.eigvalsh", matrices=n, solver=route.solver,
+                                      chunks=route.chunks(n)):
+        second = route.f14_fn(p.contiguous(), px, py)
     return torch.sqrt(second.clamp_min(0.0))
 
 
@@ -118,20 +112,20 @@ def haralick_features(
     ``max_correlation_coefficient`` is skipped when not selected. The
     default ``None`` computes all 14 in canonical order.
 
-    int32 counts, as plans hand them, take the tail
-    (``tail_kernel.haralick_tail``): on the card one kernel launch for
-    f1–f13 and the P that f14 then reads, on the CPU and past
-    ``tail_kernel.MAX_LEVELS`` its plain version, which gives the features
-    of the same counts in float64 bit for bit. ``float32_step`` (int32
-    counts only) first normalizes them in float32, as a plan with
-    ``normalize`` does. Any other GLCM is normalized in float64.
+    int32 counts, as plans hand them, take the tail on
+    ``tail_kernel.route``: on the card one kernel launch for f1–f13 and the
+    P that f14 then reads, on the CPU and past the kernel's range its plain
+    version, which gives the features of the same counts in float64 bit for
+    bit. ``float32_step`` (int32 counts only) first normalizes them in
+    float32, as a plan with ``normalize`` does. Any other GLCM is
+    normalized in float64.
     """
     idx = _select_indices(select)
     lead, L = tuple(glcm.shape[:-2]), glcm.shape[-1]
     flat = glcm.reshape(-1, L, L)
     if glcm.dtype == torch.int32 and not assume_normalized:
-        tail = _tail.haralick_tail if 2 <= L <= _tail.MAX_LEVELS else _tail.haralick_tail_plain
-        feats, p, px, py = tail(flat.contiguous(), float32_step=float32_step, with_p=13 in idx)
+        feats, p, px, py = _tail.route(flat.device.type, L).tail_fn(
+            flat.contiguous(), float32_step=float32_step, with_p=13 in idx)
     elif float32_step:
         raise ValueError(f"float32_step normalizes int32 counts, got {glcm.dtype}"
                          + (" with assume_normalized" if assume_normalized else ""))

@@ -488,11 +488,9 @@ def compile_plan(
     fused = resolved.quantize == "uniform" and backend.caps.fused_quantize
     vmin, vmax = resolved.vrange if resolved.vrange is not None else (None, None)
 
-    # The features take the int32 counts straight to the tail: its kernel on
-    # the card ("kernel"), its plain version on the CPU ("plain"), the
-    # ``solver`` of the ``plan.tail`` span.
-    on_kernel = bool(features) and device.type == "cuda" and resolved.levels <= _tail.MAX_LEVELS
-    solver = "kernel" if on_kernel else "plain"
+    # The features take the int32 counts straight to the tail; its route
+    # ("kernel" or "plain") is the ``solver`` of the ``plan.tail`` span.
+    solver = _tail.route(device.type, resolved.levels).tail if features else "plain"
 
     def tail(mats: torch.Tensor) -> torch.Tensor:
         if resolved.symmetric:

@@ -8,14 +8,18 @@
   mcc_kernel        f14's eigensolver (second_eigenvalue: the second-largest
                     eigenvalue of each Haralick Q matrix), with its count
   tail_kernel       f1–f13 of the Haralick features from int32 counts
-                    (haralick_tail), with its count, and their plain
-                    PyTorch formulas (f1_to_f13)
+                    (haralick_tail), with its count, their plain PyTorch
+                    formulas (f1_to_f13), and the route that says which
+                    implementation computes the features (route)
   ops               public wrappers: pair planes + binning + vote
                     (glcm_cuda), the fused pass (glcm_cuda_multi), texture
                     maps (glcm_cuda_windowed), volumes (glcm_cuda_volume),
                     level counts (histogram) and the plain one-hot class
                     count (onehot_count)
-  build             nvcc build of csrc/*.cu at first use, ctypes loading
+  build             the kernel table (TABLE: each wrapper, its library and
+                    role), the launch seam every wrapper goes through
+                    (dispatch, launch), nvcc build of csrc/*.cu at first
+                    use, ctypes loading
   ref               offset tables and the plain scatter-add oracles
 """
 

@@ -1,4 +1,13 @@
-"""Build the CUDA sources of ``repro_torch/csrc`` with nvcc and load them.
+"""The kernel layer's seam: the port's kernel table, the nvcc build of
+``repro_torch/csrc``, and the one way a wrapper launches a kernel.
+
+``TABLE`` declares every kernel wrapper once, with its library and its
+role: it "counts" votes or computes "features". ``KERNELS`` (the libraries
+``build()`` compiles) and ``wrappers()`` (whose ``.launches`` the analyzer
+and the chip smoke read) come from it. Every wrapper goes through
+``dispatch`` and ``launch``, which raises ``<wrapper>.launches`` — there
+and nowhere else. ``launch`` looks the library up through ``load`` at each
+call, so a tool may swap ``load`` for a variant library.
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library, ``build/repro_torch/lib<name>-<hash>.so`` at the root of the
@@ -19,7 +28,9 @@ compiler and no card, and only a call to ``build`` or ``load`` needs nvcc.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
+import importlib
 import os
 import re
 import shutil
@@ -27,14 +38,48 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
+from repro_torch.analysis.scopes import scope
+
 __all__ = [
-    "KERNELS", "NVCC_FLAGS", "BUILD_DIR", "build", "library_path", "load", "nvcc", "sources",
+    "KERNELS", "NVCC_FLAGS", "BUILD_DIR", "TABLE", "Kernel", "build", "call", "dispatch",
+    "launch", "library_path", "load", "nvcc", "sources", "wrappers",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """One kernel wrapper of the port: its name, the kernels module that
+    defines it, the library of ``csrc/<library>.cu`` it launches, and its
+    role, "counts" or "features"."""
+
+    name: str
+    module: str
+    library: str
+    role: str
+
+    @property
+    def wrapper(self):
+        """The wrapper function, imported at first use (its module imports
+        this one)."""
+        return getattr(importlib.import_module(f"repro_torch.kernels.{self.module}"), self.name)
+
+
+TABLE = (
+    Kernel("glcm_vote", "glcm_kernel", "glcm_vote", "counts"),
+    Kernel("glcm_fused", "glcm_kernel", "glcm_fused", "counts"),
+    Kernel("glcm_window", "glcm_kernel", "glcm_window", "counts"),
+    Kernel("glcm_volume", "glcm_kernel", "glcm_volume", "counts"),
+    Kernel("histogram", "histogram_kernel", "histogram", "counts"),
+    Kernel("second_eigenvalue", "mcc_kernel", "haralick_mcc", "features"),
+    Kernel("haralick_tail", "tail_kernel", "haralick_tail", "features"),
+)
+_LIBRARY = {k.name: k.library for k in TABLE}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("glcm_vote", "glcm_fused", "glcm_window", "glcm_volume", "histogram", "haralick_mcc",
-           "haralick_tail")
+KERNELS = tuple(k.library for k in TABLE)  # one row a library
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-prec-div=true", "-ftz=false",
@@ -131,3 +176,50 @@ def load(name: str) -> ctypes.CDLL:
                 build((name,))
             lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def wrappers() -> tuple:
+    """The wrapper functions of ``TABLE``, in its order; each counts its
+    kernel launches in ``.launches``."""
+    return tuple(k.wrapper for k in TABLE)
+
+
+def call(library: str, symbol: str, argtypes: list, *args) -> None:
+    """Call ``symbol`` of ``csrc/<library>.cu``'s library, bound with
+    ``argtypes`` and an int result (a CUDA error code), on ``args``; a
+    nonzero code raises RuntimeError with CUDA's message."""
+    lib = load(library)
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    code = fn(*args)
+    if code:
+        msg = getattr(lib, f"{library}_error_string")
+        msg.argtypes = [ctypes.c_int]
+        msg.restype = ctypes.c_char_p
+        raise RuntimeError(
+            f"{library} kernel launch failed: CUDA error {code} ({msg(code).decode()})"
+        )
+
+
+def launch(wrapper, symbol: str, argtypes: list, device: torch.device, *args) -> None:
+    """One launch of ``wrapper``'s kernel: ``symbol`` of its library called
+    with ``args`` and, last, the current stream of ``device`` (``argtypes``
+    ends with the stream's pointer) while ``device`` is current; then
+    ``wrapper.launches`` goes up by one."""
+    with torch.cuda.device(device):
+        call(_LIBRARY[wrapper.__name__], symbol, argtypes, *args,
+             torch.cuda.current_stream(device).cuda_stream)
+    wrapper.launches += 1
+
+
+def dispatch(wrapper, t: torch.Tensor, plain, kernel):
+    """The wrapper rule, by the device of ``t``: on the CPU ``plain()``
+    inside the ``kernel:<wrapper>`` scope, on a CUDA device ``kernel()``
+    (which launches or raises, never falls back); another device raises."""
+    if t.device.type == "cpu":
+        with scope(f"kernel:{wrapper.__name__}"):
+            return plain()
+    if t.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__}: unsupported device {t.device}")
+    return kernel()

@@ -21,12 +21,13 @@ Counterparts of the TPU kernels of ``repro/kernels/glcm_kernel.py``:
     (CUDA source: ``csrc/glcm_volume.cu``; plain version: ``glcm_volume_plain``)
 
 Each wrapper checks its arguments, then dispatches on the device of the
-tensor it was given: on the CPU it computes the plain version, inside the
-analyzer's ``kernel:<name>`` scope (``analysis.scopes``, the counterpart of
-the ``pallas_call`` boundary); on a CUDA tensor it launches the kernel, or
-raises — it never falls back. Each keeps a
-launch count, a plain int attribute (``glcm_vote.launches``), raised by one
-at each kernel launch and nowhere else.
+tensor it was given through ``build.dispatch``: on the CPU it computes the
+plain version, inside the analyzer's ``kernel:<name>`` scope
+(``analysis.scopes``, the counterpart of the ``pallas_call`` boundary); on a
+CUDA tensor it launches the kernel through ``build.launch``, or raises — it
+never falls back. Each keeps a launch count, a plain int attribute
+(``glcm_vote.launches``), which ``build.launch`` raises by one at each
+kernel launch.
 
 The kernels are built with nvcc at first use (``kernels.build``) and bound
 with ctypes; the sources say how each is designed and what bounds it.
@@ -38,7 +39,6 @@ import ctypes
 
 import torch
 
-from repro_torch.analysis.scopes import scope
 from repro_torch.core.quantize import assert_levels, repeat_params
 from repro_torch.core.schemes import glcm_scatter_batch
 from repro_torch.kernels import build
@@ -69,29 +69,6 @@ MAX_STREAMS = 65535    # streams per vote launch (the grid's y extent)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-
-
-def _function(lib_name: str, fn: str, argtypes: list) -> ctypes._CFuncPtr:
-    f = getattr(build.load(lib_name), fn)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
-    return f
-
-
-def _check_launch(lib_name: str, code: int) -> None:
-    if code:
-        msg = _function(lib_name, f"{lib_name}_error_string", [ctypes.c_int])
-        msg.restype = ctypes.c_char_p
-        raise RuntimeError(
-            f"{lib_name} kernel launch failed: CUDA error {code} "
-            f"({msg(code).decode()})"
-        )
-
-
-def _check_device(t: torch.Tensor, what: str) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {t.device}")
-    return t.device.type
 
 
 # ---------------------------------------------------------------------------
@@ -144,11 +121,8 @@ def glcm_vote(
     batched = assoc.ndim == 2
     a = assoc if batched else assoc[None]
     r = ref if batched else ref[None]
-    if _check_device(a, "glcm_vote") == "cpu":
-        with scope("kernel:glcm_vote"):
-            out = glcm_vote_plain(a, r, levels)
-    else:
-        out = _launch_vote(a, r, levels, chunk, copies)
+    out = build.dispatch(glcm_vote, a, lambda: glcm_vote_plain(a, r, levels),
+                         lambda: _launch_vote(a, r, levels, chunk, copies))
     return out if batched else out[0]
 
 
@@ -162,16 +136,11 @@ def _launch_vote(a, r, levels, chunk, copies) -> torch.Tensor:
     r = r.to(torch.int32).contiguous()
     b, n = a.shape
     out = torch.zeros((b, levels, levels), dtype=torch.int32, device=a.device)
-    fn = _function("glcm_vote", "glcm_vote_launch",
-                   [_P, _P, _P, _I, _LL, _I, _I, _I, _P])
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        for lo in range(0, b, MAX_STREAMS):
-            hi = min(lo + MAX_STREAMS, b)
-            code = fn(a[lo:hi].data_ptr(), r[lo:hi].data_ptr(), out[lo:hi].data_ptr(),
-                      hi - lo, n, levels, copies, chunk, stream)
-            _check_launch("glcm_vote", code)
-            glcm_vote.launches += 1
+    for lo in range(0, b, MAX_STREAMS):
+        hi = min(lo + MAX_STREAMS, b)
+        build.launch(glcm_vote, "glcm_vote_launch", [_P, _P, _P, _I, _LL, _I, _I, _I, _P],
+                     a.device, a[lo:hi].data_ptr(), r[lo:hi].data_ptr(), out[lo:hi].data_ptr(),
+                     hi - lo, n, levels, copies, chunk)
     return out
 
 
@@ -248,11 +217,9 @@ def glcm_fused(
             raise ValueError(f"|dx|={abs(dx)} must be < width={w}")
     batched = img.ndim == 3
     stack = img if batched else img[None]
-    if _check_device(stack, "glcm_fused") == "cpu":
-        with scope("kernel:glcm_fused"):
-            out = glcm_fused_plain(stack, levels, offsets, quant=quant)
-    else:
-        out = _launch_fused(stack, levels, offsets, tile_h, copies, quant)
+    out = build.dispatch(glcm_fused, stack,
+                         lambda: glcm_fused_plain(stack, levels, offsets, quant=quant),
+                         lambda: _launch_fused(stack, levels, offsets, tile_h, copies, quant))
     return out if batched else out[0]
 
 
@@ -323,9 +290,8 @@ def launch_plan(kernel: str, shape: tuple[int, ...], offsets, *, levels: int,
         keys = ("blocks_per_sm", "smem_bytes", "shared_hist", "copies", "runs", "tile_rows",
                 "planes_per_step", "ring_slots", "grid", "planes_per_block", "registers",
                 "local_bytes")
-    fn = _function(kernel, f"{kernel}_plan", argtypes + [_P] * len(cols) + [_I, _P])
-    code = fn(*args, *(ctypes.addressof(a) for a in arrays), n_off, ctypes.addressof(info))
-    _check_launch(kernel, code)
+    build.call(kernel, f"{kernel}_plan", argtypes + [_P] * len(cols) + [_I, _P],
+               *args, *(ctypes.addressof(a) for a in arrays), n_off, ctypes.addressof(info))
     plan = dict(zip(keys, info))
     if kernel == "glcm_window":
         plan["path"] = ("staged", "direct_shared", "direct_global")[plan["path"]]
@@ -342,15 +308,11 @@ def _launch_fused(stack, levels, offsets, tile_h, copies, quant) -> torch.Tensor
     out = torch.zeros((b, n_off, levels, levels), dtype=torch.int32, device=stack.device)
     dy = (ctypes.c_int * n_off)(*(o[0] for o in offsets))
     dx = (ctypes.c_int * n_off)(*(o[1] for o in offsets))
-    fn = _function("glcm_fused", "glcm_fused_launch",
-                   [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P])
-    with torch.cuda.device(stack.device):
-        stream = torch.cuda.current_stream(stack.device).cuda_stream
-        code = fn(x.data_ptr(), kind, None if q is None else q.data_ptr(), out.data_ptr(),
-                  b, h, w, levels, copies, tile_h, ctypes.addressof(dy),
-                  ctypes.addressof(dx), n_off, stream)
-    _check_launch("glcm_fused", code)
-    glcm_fused.launches += 1
+    build.launch(glcm_fused, "glcm_fused_launch",
+                 [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P], stack.device,
+                 x.data_ptr(), kind, None if q is None else q.data_ptr(), out.data_ptr(),
+                 b, h, w, levels, copies, tile_h, ctypes.addressof(dy), ctypes.addressof(dx),
+                 n_off)
     return out
 
 
@@ -460,11 +422,9 @@ def glcm_window(
     for dy, dx in offsets:
         if not (0 <= dy < rh) or abs(dx) >= rw:
             raise ValueError(f"offset (dy={dy}, dx={dx}) does not fit region ({rh}, {rw})")
-    if _check_device(windows, "glcm_window") == "cpu":
-        with scope("kernel:glcm_window"):
-            return glcm_window_plain(x, levels, offsets, region_shape=region_shape,
-                                     stride=stride, quant=quant)
-    out = _launch_window(x, region_shape, stride, levels, offsets, copies, quant)
+    out = build.dispatch(
+        glcm_window, windows, lambda: glcm_window_plain(windows, levels, offsets, quant=quant),
+        lambda: _launch_window(x, region_shape, stride, levels, offsets, copies, quant))
     return out if batched else out[0]
 
 
@@ -486,15 +446,11 @@ def _launch_window(x, region_shape, stride, levels, offsets, copies, quant) -> t
                       device=src.device)
     dy = (ctypes.c_int * n_off)(*(o[0] for o in offsets))
     dx = (ctypes.c_int * n_off)(*(o[1] for o in offsets))
-    fn = _function("glcm_window", "glcm_window_launch",
-                   [_P, _I, _P, _P] + [_I] * 5 + [_LL] * 4 + [_I, _I, _P, _P, _I, _P])
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        code = fn(windows.data_ptr(), kind, None if q is None else q.data_ptr(),
-                  out.data_ptr(), b, gh, gw, rh, rw, s_img, s_row, s_col, s_y, levels, copies,
-                  ctypes.addressof(dy), ctypes.addressof(dx), n_off, stream)
-    _check_launch("glcm_window", code)
-    glcm_window.launches += 1
+    build.launch(glcm_window, "glcm_window_launch",
+                 [_P, _I, _P, _P] + [_I] * 5 + [_LL] * 4 + [_I, _I, _P, _P, _I, _P], src.device,
+                 windows.data_ptr(), kind, None if q is None else q.data_ptr(), out.data_ptr(),
+                 b, gh, gw, rh, rw, s_img, s_row, s_col, s_y, levels, copies,
+                 ctypes.addressof(dy), ctypes.addressof(dx), n_off)
     return out
 
 
@@ -554,11 +510,9 @@ def glcm_volume(
             raise ValueError(f"in-plane offset (dy={dy}, dx={dx}) exceeds plane ({h}, {w})")
     batched = vol.ndim == 4
     stack = vol if batched else vol[None]
-    if _check_device(stack, "glcm_volume") == "cpu":
-        with scope("kernel:glcm_volume"):
-            out = glcm_volume_plain(stack, levels, offsets, quant=quant)
-    else:
-        out = _launch_volume(stack, levels, offsets, slab_d, copies, quant)
+    out = build.dispatch(glcm_volume, stack,
+                         lambda: glcm_volume_plain(stack, levels, offsets, quant=quant),
+                         lambda: _launch_volume(stack, levels, offsets, slab_d, copies, quant))
     return out if batched else out[0]
 
 
@@ -574,13 +528,9 @@ def _launch_volume(stack, levels, offsets, slab_d, copies, quant) -> torch.Tenso
     dz = (ctypes.c_int * n_off)(*(o[0] for o in offsets))
     dy = (ctypes.c_int * n_off)(*(o[1] for o in offsets))
     dx = (ctypes.c_int * n_off)(*(o[2] for o in offsets))
-    fn = _function("glcm_volume", "glcm_volume_launch",
-                   [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P])
-    with torch.cuda.device(stack.device):
-        stream = torch.cuda.current_stream(stack.device).cuda_stream
-        code = fn(x.data_ptr(), kind, None if q is None else q.data_ptr(), out.data_ptr(),
-                  b, d, h, w, levels, copies, slab_d, ctypes.addressof(dz),
-                  ctypes.addressof(dy), ctypes.addressof(dx), n_off, stream)
-    _check_launch("glcm_volume", code)
-    glcm_volume.launches += 1
+    build.launch(glcm_volume, "glcm_volume_launch",
+                 [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P], stack.device,
+                 x.data_ptr(), kind, None if q is None else q.data_ptr(), out.data_ptr(),
+                 b, d, h, w, levels, copies, slab_d, ctypes.addressof(dz),
+                 ctypes.addressof(dy), ctypes.addressof(dx), n_off)
     return out

@@ -14,10 +14,10 @@ that analogy on the card, with the vote kernel's machinery: R privatized
 sub-histograms in shared memory, merged with atomics.
 
 As in ``glcm_kernel``, the wrapper checks its arguments and dispatches on
-the device of the tensor it was given: on the CPU it computes the plain
-version (in the analyzer's ``kernel:histogram`` scope); on a CUDA tensor it launches the kernel, or raises — it never
-falls back. ``histogram.launches`` is raised by one at each kernel launch
-and nowhere else.
+the device of the tensor it was given through ``build.dispatch``: on the CPU
+it computes the plain version (in the analyzer's ``kernel:histogram``
+scope); on a CUDA tensor it launches the kernel, or raises — it never falls
+back. ``build.launch`` raises ``histogram.launches`` by one at each launch.
 """
 
 from __future__ import annotations
@@ -26,8 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.analysis.scopes import scope
-from repro_torch.kernels.glcm_kernel import _check_device, _check_launch, _function
+from repro_torch.kernels import build
 
 __all__ = ["histogram", "histogram_plain"]
 
@@ -62,10 +61,8 @@ def histogram(
         raise ValueError(f"chunk and copies must be >= 1, got {chunk}, {copies}")
     if chunk % copies:
         raise ValueError(f"chunk ({chunk}) must be divisible by copies ({copies})")
-    if _check_device(values, "histogram") == "cpu":
-        with scope("kernel:histogram"):
-            return histogram_plain(values, levels)
-    return _launch_histogram(values, levels, chunk, copies)
+    return build.dispatch(histogram, values, lambda: histogram_plain(values, levels),
+                          lambda: _launch_histogram(values, levels, chunk, copies))
 
 
 histogram.launches = 0
@@ -76,10 +73,6 @@ def _launch_histogram(values, levels, chunk, copies) -> torch.Tensor:
     out = torch.zeros((levels,), dtype=torch.int32, device=v.device)
     if v.numel() == 0:  # a zero-block grid is an invalid launch
         return out
-    fn = _function("histogram", "histogram_launch", [_P, _P, _LL, _I, _I, _I, _P])
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        code = fn(v.data_ptr(), out.data_ptr(), v.numel(), levels, copies, chunk, stream)
-    _check_launch("histogram", code)
-    histogram.launches += 1
+    build.launch(histogram, "histogram_launch", [_P, _P, _LL, _I, _I, _I, _P], v.device,
+                 v.data_ptr(), out.data_ptr(), v.numel(), levels, copies, chunk)
     return out

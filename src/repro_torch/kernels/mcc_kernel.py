@@ -17,11 +17,11 @@ with A and G kept on chip; wider, one block a matrix on G, which the
 wrapper forms with a float64 GEMM, as the plain version does.
 
 As in ``glcm_kernel``, the wrapper checks its arguments and dispatches on
-the device of the tensor it was given: on the CPU it computes the plain
-version (in the analyzer's ``kernel:second_eigenvalue`` scope); on a CUDA
-tensor it launches the kernel, or raises — it never falls back.
-``second_eigenvalue.launches`` is raised by one at each kernel launch and
-nowhere else.
+the device of the tensor it was given through ``build.dispatch``: on the CPU
+it computes the plain version (in the analyzer's
+``kernel:second_eigenvalue`` scope); on a CUDA tensor it launches the
+kernel, or raises — it never falls back. ``build.launch`` raises
+``second_eigenvalue.launches`` by one at each launch.
 """
 
 from __future__ import annotations
@@ -30,8 +30,7 @@ import ctypes
 
 import torch
 
-from repro_torch.analysis.scopes import scope
-from repro_torch.kernels.glcm_kernel import _check_device, _check_launch, _function
+from repro_torch.kernels import build
 
 __all__ = ["second_eigenvalue", "second_eigenvalue_plain", "eigvalsh_chunks", "EIG_CHUNK_ELEMENTS",
            "MAX_LEVELS", "WARP_LEVELS"]
@@ -95,10 +94,8 @@ def second_eigenvalue(p: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> to
         raise ValueError(
             f"marginals must be (N, L) = {(n, L)}, got {tuple(px.shape)} and {tuple(py.shape)}"
         )
-    if _check_device(p, "second_eigenvalue") == "cpu":
-        with scope("kernel:second_eigenvalue"):
-            return second_eigenvalue_plain(p, px, py)
-    return _launch(p, px, py)
+    return build.dispatch(second_eigenvalue, p, lambda: second_eigenvalue_plain(p, px, py),
+                          lambda: _launch(p, px, py))
 
 
 second_eigenvalue.launches = 0
@@ -118,15 +115,11 @@ def _launch(p, px, py) -> torch.Tensor:
     out = torch.empty((n,), dtype=torch.float64, device=p.device)
     if n == 0:  # a zero-block grid is an invalid launch
         return out
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        if L <= WARP_LEVELS:
-            fn = _function("haralick_mcc", "haralick_mcc_launch", [_P, _P, _P, _P, _LL, _I, _P])
-            code = fn(p.data_ptr(), px.data_ptr(), py.data_ptr(), out.data_ptr(), n, L, stream)
-        else:  # the kernel reduces G in place
-            gram = _gram(p, px, py).contiguous()
-            fn = _function("haralick_mcc", "haralick_mcc_wide_launch", [_P, _P, _LL, _I, _P])
-            code = fn(gram.data_ptr(), out.data_ptr(), n, L, stream)
-    _check_launch("haralick_mcc", code)
-    second_eigenvalue.launches += 1
+    if L <= WARP_LEVELS:
+        build.launch(second_eigenvalue, "haralick_mcc_launch", [_P, _P, _P, _P, _LL, _I, _P],
+                     p.device, p.data_ptr(), px.data_ptr(), py.data_ptr(), out.data_ptr(), n, L)
+    else:  # the kernel reduces G in place
+        gram = _gram(p, px, py).contiguous()
+        build.launch(second_eigenvalue, "haralick_mcc_wide_launch", [_P, _P, _LL, _I, _P],
+                     p.device, gram.data_ptr(), out.data_ptr(), n, L)
     return out

@@ -27,24 +27,30 @@ float32 normalization (``p32 = c / max(Σc, 1)`` in float32, then
 both: the plan's float32 sum of the counts is the same below 2²⁴.
 
 As in ``glcm_kernel``, the wrapper checks its arguments and dispatches on
-the device of the tensor it was given: on the CPU it computes the plain
-version (in the analyzer's ``kernel:haralick_tail`` scope); on a CUDA
-tensor it launches the kernel, or raises — it never falls back.
-``haralick_tail.launches`` is raised by one at each kernel launch and
-nowhere else.
+the device of the tensor it was given through ``build.dispatch``: on the CPU
+it computes the plain version (in the analyzer's ``kernel:haralick_tail``
+scope); on a CUDA tensor it launches the kernel, or raises — it never falls
+back. ``build.launch`` raises ``haralick_tail.launches`` by one at each
+launch.
+
+``route`` decides, from the device type and L alone, what computes the
+features of int32 counts: f1–f13 on this kernel or its plain version, f14
+on ``mcc_kernel``'s eigensolver or the chunked eigvalsh.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from collections.abc import Callable
 
 import torch
 
-from repro_torch.analysis.scopes import scope
-from repro_torch.kernels.glcm_kernel import _check_device, _check_launch, _function
+from repro_torch.kernels import build
+from repro_torch.kernels import mcc_kernel as _mcc
 
-__all__ = ["haralick_tail", "haralick_tail_plain", "f1_to_f13", "N_FEATURES", "MAX_LEVELS",
-           "WARP_LEVELS"]
+__all__ = ["haralick_tail", "haralick_tail_plain", "f1_to_f13", "route", "Route", "N_FEATURES",
+           "MAX_LEVELS", "WARP_LEVELS"]
 
 N_FEATURES = 13  # f1–f13, in core.haralick.FEATURE_NAMES' order
 WARP_LEVELS = 32  # one warp lane a row (kMax in csrc/haralick_tail.cu)
@@ -163,10 +169,10 @@ def haralick_tail(counts: torch.Tensor, *, float32_step: bool = False, with_p: b
         raise ValueError(f"haralick_tail: counts must be int32, got {counts.dtype}")
     if not counts.is_contiguous():
         raise ValueError("haralick_tail: counts must be contiguous")
-    if _check_device(counts, "haralick_tail") == "cpu":
-        with scope("kernel:haralick_tail"):
-            return haralick_tail_plain(counts, float32_step=float32_step, with_p=with_p)
-    return _launch(counts, float32_step, with_p)
+    return build.dispatch(
+        haralick_tail, counts,
+        lambda: haralick_tail_plain(counts, float32_step=float32_step, with_p=with_p),
+        lambda: _launch(counts, float32_step, with_p))
 
 
 haralick_tail.launches = 0
@@ -182,12 +188,43 @@ def _launch(counts: torch.Tensor, float32_step: bool, with_p: bool):
     if n == 0:  # a zero-block grid is an invalid launch
         return feats, p, px, py
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(counts.device):
-        stream = torch.cuda.current_stream(counts.device).cuda_stream
-        fn = _function("haralick_tail", "haralick_tail_launch",
-                       [_P, _P, _P, _P, _P, _LL, _I, _I, _P])
-        code = fn(counts.data_ptr(), feats.data_ptr(), ptr(p), ptr(px), ptr(py), n, L,
-                  int(float32_step), stream)
-    _check_launch("haralick_tail", code)
-    haralick_tail.launches += 1
+    build.launch(haralick_tail, "haralick_tail_launch", [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
+                 counts.device, counts.data_ptr(), feats.data_ptr(), ptr(p), ptr(px), ptr(py),
+                 n, L, int(float32_step))
     return feats, p, px, py
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """What computes the features of int32 counts of one L on one device
+    type: ``tail`` (f1–f13) "kernel" or "plain", ``solver`` (f14) "kernel"
+    or "eigvalsh", and the functions that do: ``tail_fn`` and ``f14_fn``,
+    the wrappers within their kernels' range of L (on the CPU they run
+    their plain versions), the plain versions past it."""
+
+    levels: int
+    tail: str
+    solver: str
+    tail_fn: Callable
+    f14_fn: Callable
+
+    def chunks(self, n: int) -> int:
+        """The eigvalsh calls f14 makes for ``n`` matrices: none on the
+        kernel."""
+        return 0 if self.solver == "kernel" else _mcc.eigvalsh_chunks(n, self.levels)
+
+
+def route(device_type: str, levels: int) -> Route:
+    """The route of the features of (N, L, L) int32 counts on ``device_type``
+    ("cpu" or "cuda") for L = ``levels``: each kernel on the card within its
+    range of L (2 ≤ L ≤ its ``MAX_LEVELS``), the plain versions elsewhere."""
+    tail = 2 <= levels <= MAX_LEVELS
+    f14 = 2 <= levels <= _mcc.MAX_LEVELS
+    card = device_type == "cuda"
+    return Route(
+        levels=levels,
+        tail="kernel" if card and tail else "plain",
+        solver="kernel" if card and f14 else "eigvalsh",
+        tail_fn=haralick_tail if tail else haralick_tail_plain,
+        f14_fn=_mcc.second_eigenvalue if f14 else _mcc.second_eigenvalue_plain,
+    )

@@ -32,6 +32,7 @@ from repro_torch.core.plan import compile_plan, plan_cache_clear  # noqa: E402
 from repro_torch.core.quantize import bin_values  # noqa: E402
 from repro_torch.core.schemes import glcm_multi, glcm_scatter_batch  # noqa: E402
 from repro_torch.core.spec import GLCMSpec  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 
 try:  # the reference needs JAX, which a machine with a card may not have
     import jax.numpy as jnp
@@ -169,7 +170,7 @@ def test_pruned_no_eigh_counts_the_eigensolver_kernel():
     record with its launch and no op shows an eigendecomposition to the rule
     (and to the audit's ``dirty-eigh`` check, through ``eigh_ops``)."""
     spec = GLCMSpec(levels=8, pairs=((1, 0),))
-    idle = {k.__name__: 0 for k in op_lint.KERNELS}
+    idle = {k.name: 0 for k in build.TABLE}
     rule = op_lint.get_rule("pruned-no-eigh")
 
     def check(launches):
@@ -276,7 +277,7 @@ def test_device_kernel_launches_ignores_the_eigensolver():
     """f14's eigensolver launches for any plan that selects it, so its launch
     alone does not show that the counts came from the card's kernels."""
     spec = GLCMSpec(levels=8, pairs=((1, 0),), scheme="cuda_fused")
-    launches = {k.__name__: 0 for k in op_lint.KERNELS}
+    launches = {k.name: 0 for k in build.TABLE}
     launches["second_eigenvalue"] = 1
     ctx = dataclasses.replace(
         _ctx(spec, "cuda"), record=op_lint.PlanRecord(ops=(), launches=launches))

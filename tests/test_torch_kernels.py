@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.analysis.scopes import recording
 from repro_torch.core.glcm import PAPER_PAIRS, glcm_features
 from repro_torch.core.haralick import haralick_features
 from repro_torch.core.plan import compile_plan
@@ -291,14 +292,39 @@ def test_build_flags_keep_ieee_arithmetic():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-prec-div=true" in flags and "-ftz=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert set(build.KERNELS) == {"glcm_vote", "glcm_fused", "glcm_window", "glcm_volume",
-                                  "histogram", "haralick_mcc", "haralick_tail"}
+    assert set(build.KERNELS) == {k.library for k in build.TABLE} == {
+        "glcm_vote", "glcm_fused", "glcm_window", "glcm_volume", "histogram", "haralick_mcc",
+        "haralick_tail"}
     for name in build.KERNELS:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
         assert (build.CSRC / f"{name}.cu").exists()
     for name in ("glcm_fused", "glcm_window", "glcm_volume", "histogram"):
         assert build.CSRC / "glcm_common.cuh" in build.sources(name)
+
+
+def test_kernel_table_has_one_row_a_library():
+    """Every ``csrc/*.cu`` library has exactly one row of the table, each
+    row's wrapper counts its launches, and the roles split the wrappers into
+    the counting kernels and the feature kernels."""
+    assert sorted(k.library for k in build.TABLE) == sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    for k in build.TABLE:
+        assert k.wrapper.__name__ == k.name and isinstance(k.wrapper.launches, int)
+    assert build.wrappers() == tuple(k.wrapper for k in build.TABLE)
+    assert {k.role for k in build.TABLE} == {"counts", "features"}
+    assert [k.name for k in build.TABLE if k.role == "features"] == ["second_eigenvalue",
+                                                                     "haralick_tail"]
+
+
+def test_dispatch_takes_the_plain_version_in_its_scope_on_the_cpu():
+    """The wrapper rule: the plain version inside ``kernel:<wrapper>`` on a
+    CPU tensor, a launch on a CUDA one, and another device raises."""
+    with recording() as rec:
+        got = build.dispatch(glcm_vote, torch.zeros(2), lambda: "plain", lambda: "kernel")
+    assert got == "plain" and rec.entered == ["kernel:glcm_vote"]
+    with pytest.raises(ValueError, match="glcm_vote: unsupported device meta"):
+        build.dispatch(glcm_vote, torch.zeros(2, device="meta"), lambda: "plain",
+                       lambda: "kernel")
 
 
 def test_library_path_hashes_included_headers(tmp_path, monkeypatch):

@@ -36,7 +36,7 @@ from repro_torch.core import backends as _backends  # noqa: E402
 from repro_torch.core.haralick import FEATURE_NAMES, haralick_features  # noqa: E402
 from repro_torch.core.plan import compile_plan  # noqa: E402
 from repro_torch.core.spec import GLCMSpec  # noqa: E402
-from repro_torch.kernels import tail_kernel  # noqa: E402
+from repro_torch.kernels import build, mcc_kernel, tail_kernel  # noqa: E402
 from repro_torch.kernels.tail_kernel import haralick_tail, haralick_tail_plain  # noqa: E402
 from repro_torch.obs.trace import Tracer, set_tracer  # noqa: E402
 
@@ -224,11 +224,46 @@ def test_plan_tail_solver_is_plain_on_the_cpu():
     assert haralick_tail.launches == before
 
 
+@pytest.mark.parametrize("levels", [2, 32, 33, 256, 1024, 1025])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_route_of_the_features(device, levels):
+    """``route`` decides from the device type and L alone: each kernel on
+    the card within its range (L <= 1024), the plain versions on the CPU and
+    past it. On the CPU it says what a call records: the ``solver`` of
+    ``plan.tail`` (a plan, up to L = 256) and the ``solver`` and ``chunks``
+    of ``haralick.eigvalsh``."""
+    route = tail_kernel.route(device, levels)
+    card, fits = device == "cuda" and levels <= 1024, levels <= 1024
+    assert (route.tail, route.solver) == (("kernel", "kernel") if card else ("plain", "eigvalsh"))
+    assert route.chunks(5) == (0 if card else mcc_kernel.eigvalsh_chunks(5, levels))
+    assert route.tail_fn is (haralick_tail if fits else haralick_tail_plain)
+    assert route.f14_fn is (mcc_kernel.second_eigenvalue if fits
+                            else mcc_kernel.second_eigenvalue_plain)
+    if device == "cuda":
+        return
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    try:
+        if levels <= 256:
+            spec = GLCMSpec(levels=levels, pairs=((1, 0), (1, 90)), quantize="uniform")
+            img = np.random.default_rng(levels).integers(0, 256, (2, 16, 16), np.uint8)
+            compile_plan(spec, img.shape, features=True, device="cpu")(img)
+        else:
+            haralick_features(_counts("band", levels, n=1))
+    finally:
+        set_tracer(prev)
+    eig = [s.attrs for s in tracer.spans() if s.name == "haralick.eigvalsh"]
+    n = eig[0]["matrices"]
+    assert eig == [{"matrices": n, "solver": route.solver, "chunks": route.chunks(n)}]
+    tails = [s.attrs for s in tracer.spans() if s.name == "plan.tail"]
+    assert tails == ([{"matrices": n, "solver": route.tail}] if levels <= 256 else [])
+
+
 def test_device_kernel_launches_ignores_the_tail_kernel():
     """The tail kernel launches for any plan with features, so its launch
     alone does not show that the counts came from the card's kernels."""
     spec = GLCMSpec(levels=8, pairs=((1, 0),), scheme="cuda_fused")
-    launches = {k.__name__: 0 for k in op_lint.KERNELS}
+    launches = {k.name: 0 for k in build.TABLE}
     assert "haralick_tail" in launches
     launches.update(haralick_tail=1, second_eigenvalue=1)
     ctx = op_lint.LintContext(
