@@ -38,7 +38,9 @@ Phases, each printing one JSON line:
    ``torch.bincount`` of the pre-built linearised index (where it fits) at
    the main-path shapes (glcm_fused and glcm_volume also on the smooth and
    the random half, and glcm_fused on the stack as uint8, with its peak
-   allocation; glcm_window on the smooth and the random texture, each as
+   allocation, and on it at L = 256 over scikit-image's four offsets, the
+   count of features-4096-L256, exact, with the cluster size its launch
+   plan reports; glcm_window on the smooth and the random texture, each as
    float32 and as its uint8 original, with the uint8 launch's peak
    allocation), the bound of each kernel, glcm_features images/s, windows/s
    and voxels/s end to end, and the Haralick tail alone. Then ``mcc``:
@@ -979,6 +981,18 @@ def phase_timing(stack, big, chk) -> dict:
         glcm_features(u8, LEVELS)
     torch.cuda.synchronize()
     t["features_uint8_images_per_s"] = reps * b / (time.perf_counter() - t0)
+
+    # The count of features-4096-L256: the uint8 stack at L = 256 over
+    # scikit-image's four offsets, one set of 1 MB that no block holds.
+    wide = tuple(glcm_offsets(1, theta) for theta in (0, 45, 90, 135))
+    fused256 = lambda x, q: glcm_fused(x, levels=256, offsets=wide,  # noqa: E731
+                                       tile_h=default_tile_h(wide), quant=q)
+    t["fused_L256_cluster"] = launch_plan("glcm_fused", tuple(u8.shape), wide, levels=256,
+                                          split=default_tile_h(wide), kind=KIND_BYTE)["cluster"]
+    require(torch.equal(fused256(u8, q8), glcm_fused_plain(u8, 256, wide, quant=q8)),
+            "glcm_fused at L = 256 != plain")
+    t["fused_L256_ms"] = cuda_ms(lambda: fused256(u8, q8), reps=10)
+    t.update(_halves("fused_L256", u8, q8, fused256, reps=10))
     emit({"phase": "timing", **t})
     return t
 

@@ -180,11 +180,14 @@ def count_route(backend: Backend, img_batch: torch.Tensor, spec: GLCMSpec,
                 quant=None) -> dict:
     """Where :func:`compute_regions`' count of ``img_batch`` keeps its votes:
     ``hist`` "shared" (``copies`` private sub-histogram sets in shared
-    memory, merged into the output at block exit) or "global" (global
-    atomics straight into the output; ``copies`` 1), from the kernel's
-    launch plan (``glcm_kernel.launch_plan``), which launches nothing and
-    reads nothing back; "plain" (``copies`` 0) on the CPU, where the kernels'
-    plain versions count. Empty for a backend on the card that declares no
+    memory, merged into the output at block exit), "cluster" (the counts
+    of half the offsets spread over the shared memory of a cluster of
+    ``cluster`` blocks, merged at exit, the rest voted with global atomics;
+    ``copies`` 1) or "global" (global atomics straight into the output;
+    ``copies`` 1), from the kernel's launch plan
+    (``glcm_kernel.launch_plan``), which launches nothing and reads nothing
+    back; "plain" (``copies`` 0) on the CPU, where the kernels' plain
+    versions count. Empty for a backend on the card that declares no
     ``route`` (only ``cuda_fused`` does, for whole images)."""
     if img_batch.device.type != "cuda":
         return {"hist": "plain", "copies": 0}
@@ -395,7 +398,8 @@ def _cuda_fused_route(shape, spec: GLCMSpec, kind: int) -> dict:
     tile_h = spec.tile_h if spec.tile_h is not None else kops.default_tile_h(offsets)
     plan = launch_plan("glcm_fused", shape, offsets, levels=spec.levels, split=tile_h,
                        copies=spec.copies, kind=kind)
-    return {"hist": "shared" if plan["shared_hist"] else "global", "copies": plan["copies"]}
+    hist = "cluster" if plan["cluster"] else "shared" if plan["shared_hist"] else "global"
+    return {"hist": hist, "copies": plan["copies"], "cluster": plan["cluster"]}
 
 
 def _cuda_volume_compute(img: torch.Tensor, spec: GLCMSpec, quant=None) -> torch.Tensor:

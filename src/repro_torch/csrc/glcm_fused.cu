@@ -34,8 +34,13 @@
 // one barrier per row. A thread votes a run of 16 consecutive pixels from
 // aligned shared loads, one shared atomic per vote. Votes go to `copies`
 // (R) private sub-histogram sets in shared memory, merged with global
-// atomics at block exit; where not even one set fits beside the ring
-// (L = 256, or 128 with 4 offsets), the kernel votes with global atomics.
+// atomics at block exit. Where not even one set fits beside the ring
+// (L = 256, or 128 with 4 offsets: 1 MB and 256 KB against 227 KB a
+// block), a cluster of blocks holds the counts of half the offsets across
+// its shared memory (4 blocks of 128 KB at L = 256), each vote sent to the
+// block that owns its reference row, while the other half vote with global
+// atomics; each pixel is still marched once. Only a set too large for any
+// cluster (16 offsets at L = 256) is voted with global atomics alone.
 // tile_h only bounds how finely the rows are split between blocks: it
 // never changes the counts.
 

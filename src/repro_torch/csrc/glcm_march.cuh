@@ -34,19 +34,41 @@
 // shared atomicAdd. Aggregating equal votes first was measured on the H100
 // and lost on smooth and random inputs alike (PERF.md): a run that
 // keeps a pending (cell, count) costs more compares and branches than the
-// atomics it saves, and __match_any_sync costs far more.
+// shared atomics it saves, and __match_any_sync costs far more. A remote
+// or global add costs far more than a shared one, so the cluster variant
+// does send a run of equal votes as one add of its length (send_run).
 //
-// Counts go to `copies` (the paper's R) private sets of n_off L x L
-// sub-histograms in shared memory (lane l uses set l % R; sets n_off*L*L+1
-// words apart), merged into the output with global atomicAdd when the block
-// exits. Where not even one set fits beside the ring, the same kernel votes
-// straight into the output with global atomics (the kShared = false
-// variant). R never changes the counts; the wrapper zeroes the output.
+// Counts go to one of three places, chosen by plan() from the set's bytes
+// (n_off L x L int32) alone; the wrapper zeroes the output.
+// - Shared (kShared): `copies` (the paper's R) private sets of
+//   sub-histograms in shared memory (lane l uses set l % R; sets
+//   n_off*L*L+1 words apart), merged into the output with global atomicAdd
+//   when the block exits. R never changes the counts.
+// - Cluster (kCluster): where not even one set fits beside the ring, the
+//   counts of the first half of the offsets (`held`) are spread over the
+//   shared memory of a cluster of C blocks (the smallest of 2, 4, 8, and
+//   16 where the card allows it, whose slices fit), and the other half vote
+//   with global atomics: the SM-to-SM network and the L2 share the votes.
+//   Block q of the cluster holds the reference rows r = q mod C, so a
+//   vote's owner is r & (C - 1) and its word (r >> log2 C) * L + a (no
+//   division). Each pixel is still marched once; a run of equal votes is
+//   one red.shared::cluster (or one global atomicAdd) of its length. Every
+//   block zeroes its slice and the cluster syncs before the first vote;
+//   after an image's last, it syncs again and each block adds its slice's
+//   non-zero words into the output with global atomicAdd (several clusters
+//   may share an image).
+// - Global (kGlobal): where no cluster holds even half the set (32
+//   offsets at L = 256), every vote is a global atomicAdd into the output.
 //
 // Work split: the plane-tiles of one image, unit-major (strip, row tile)
 // then depth, are cut into equal spans of at least `split` planes (tile_h or
 // slab_d), one span per block and at most one block per resident slot on
 // the card; a span that crosses from one unit to the next starts a new ring.
+// A cluster (kCluster) takes an equal share of all images' plane-tiles, one
+// cluster per resident cluster slot (cudaOccupancyMaxActiveClusters: at
+// L = 256, a block's 128 KB slice leaves one block an SM), and cuts its share of
+// each image it meets into one span a block; between two images it syncs,
+// flushes, zeroes its slices and syncs again.
 
 #pragma once
 
@@ -55,6 +77,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "glcm_common.cuh"
@@ -67,6 +90,10 @@ constexpr int kRun = 16;       // x cells a thread votes per row (a 16-byte run 
 constexpr int kMaxUnits = 2;   // load units a thread issues before it stores them
 constexpr int kMaxOffsets = 64;
 constexpr int kLutBytes = 512;  // after the ring: the levels of the 256 uint8 values
+constexpr int kMaxCluster = 16;  // 8 is the portable limit; 16 where the card allows it
+
+// Where a block's votes go (the kernel's third template argument).
+enum Hist : int { kGlobal = 0, kShared = 1, kCluster = 2 };
 
 // How the input holds its values (the wrappers pass this code).
 enum Kind : int { kLevels = 0, kFloat = 1, kByte = 2 };
@@ -86,7 +113,9 @@ struct Geometry {
   int ring_rows, ring_w;             // rows of a ring plane-tile, cells of a ring row
   int unit_row;                      // load units per ring row
   int strips, row_tiles, per_image, shared_hist;
-  long long span;                    // plane-tiles per block
+  int cluster, cluster_shift, band;  // blocks a cluster (0: none), log2 of it, rows a block holds
+  int held;                          // offsets whose counts the cluster holds (the rest: global)
+  long long span;                    // plane-tiles per block (kCluster: per cluster)
   int hist_bytes, ring_bytes, smem;
 };
 
@@ -289,15 +318,68 @@ __device__ __forceinline__ int level_at(const unsigned* w, int i) {
   else return (w[i >> 1] >> ((i & 1) * 16)) & 0xffff;
 }
 
-// Votes the planes of step `step` of the item [za, zb) from the ring.
-template <typename Lv>
-__device__ __forceinline__ void vote(const Lv* ring, int* mine, const Geometry& g,
+// `n` votes into word `word` of the cluster's set, held by block `rank` of
+// the cluster: `word` is the shared-memory address in this block, which is
+// the same in every block of the cluster.
+__device__ __forceinline__ void cluster_add(unsigned word, unsigned rank, int n) {
+  asm volatile(
+      "{\n\t.reg .u32 remote;\n\t"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n\t"
+      "red.relaxed.cluster.shared::cluster.add.u32 [remote], %2;\n\t}"
+      :: "r"(word), "r"(rank), "r"(n) : "memory");
+}
+
+// Sends one offset's votes of a run as few adds: a run of equal (ref,
+// assoc) cells is one add of its length. kRemote: into the cluster's set,
+// whose band for this offset starts at shared address `hk_s` in every block;
+// else into the image's L x L counts of this offset at `hk` (global).
+template <typename Lv, bool kRemote>
+__device__ __forceinline__ void send_run(const unsigned* rw, const int* a, unsigned voting,
+                                         int levels, unsigned hk_s, int* hk, int shift,
+                                         int owner) {
+  int pr = -1, pa = 0, n = 0;
+  auto flush = [&]() {
+    if (!n) return;
+    if constexpr (kRemote) {
+      cluster_add(hk_s + 4u * static_cast<unsigned>((pr >> shift) * levels + pa),
+                  static_cast<unsigned>(pr & owner), n);
+    } else {
+      atomicAdd(hk + pr * levels + pa, n);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kRun; ++i) {
+    const int r = level_at<Lv>(rw, i);
+    if (r < levels && (voting >> i & 1u)) {
+      if (r != pr || a[i] != pa) {
+        flush();
+        pr = r;
+        pa = a[i];
+        n = 0;
+      }
+      ++n;
+    }
+  }
+  flush();
+}
+
+// Votes the planes of step `step` of the item [za, zb) from the ring into
+// `mine` (a block's set, the output or, kCluster, the cluster's set; then
+// the offsets past g.held go to `out_b`, the image's output).
+template <typename Lv, int kHist>
+__device__ __forceinline__ void vote(const Lv* ring, int* mine, int* out_b, const Geometry& g,
                                      const Offsets& offs, int step, int za, int zb, int y0) {
   constexpr int kW = kRun * sizeof(Lv) / 4;  // words of one run
   const int per_plane = g.tile_rows * g.runs;
   const int items = g.planes * per_plane;
   const int levels = g.levels;
-  const int cells = levels * levels;
+  // Words between two offsets' histograms: a whole L x L, or a cluster
+  // block's band of reference rows.
+  const int cells = kHist == kCluster ? g.band * levels : levels * levels;
+  const unsigned mine_s = kHist == kCluster ? static_cast<unsigned>(__cvta_generic_to_shared(mine))
+                                            : 0u;
+  const int shift = g.cluster_shift;
+  const int owner = g.cluster - 1;
   for (int v = threadIdx.x; v < items; v += kThreads) {
     const int s = v / per_plane;
     const int rem = v - s * per_plane;
@@ -344,53 +426,48 @@ __device__ __forceinline__ void vote(const Lv* ring, int* mine, const Geometry& 
       }
       unsigned rw[kW];
       shifted<Lv, kW>(v4, (byte & 15) >> 2, (byte & 3) * 8, rw);
-      int* hk = mine + k * cells;
+      if constexpr (kHist == kCluster) {
+        if (k < g.held) {
+          send_run<Lv, true>(rw, a, voting, levels, mine_s + 4u * static_cast<unsigned>(k * cells),
+                             nullptr, shift, owner);
+        } else {
+          send_run<Lv, false>(rw, a, voting, levels, 0u, out_b + k * levels * levels, 0, 0);
+        }
+      } else {
+        int* hk = mine + k * cells;
 #pragma unroll
-      for (int i = 0; i < kRun; ++i) {
-        const int r = level_at<Lv>(rw, i);
-        if (r < levels && (voting >> i & 1u)) atomicAdd(hk + r * levels + a[i], 1);
+        for (int i = 0; i < kRun; ++i) {
+          const int r = level_at<Lv>(rw, i);
+          if (r < levels && (voting >> i & 1u)) atomicAdd(hk + r * levels + a[i], 1);
+        }
       }
     }
   }
 }
 
-template <typename In, typename Lv, bool kShared>
-__global__ void __launch_bounds__(kThreads, 3)
-march_kernel(const In* __restrict__ img, const float* __restrict__ quant, int* __restrict__ out,
-             const Geometry g, const Offsets offs) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* hist = reinterpret_cast<int*>(smem);
-  Lv* ring = reinterpret_cast<Lv*>(smem + g.hist_bytes);
-  const int cells = g.levels * g.levels;
-  const int set_stride = offs.n * cells + 1;
-  const int b = blockIdx.x / g.per_image;
-  const int part = blockIdx.x - b * g.per_image;
-  int* out_b = out + static_cast<long long>(b) * offs.n * cells;
-
+// The block's binner for image b: its (lo, span) from `quant`.
+template <typename In, typename Lv>
+__device__ __forceinline__ Binner<Lv> image_binner(const float* quant, int b, int levels,
+                                                   Lv* lut) {
   float lo = 0.0f, span = 1.0f;
   if constexpr (!std::is_same<In, int>::value) {
     lo = quant[2 * b];
     span = quant[2 * b + 1];
   }
-  const Binner<Lv> bn = make_binner<In, Lv>(
-      lo, span, g.levels, reinterpret_cast<Lv*>(smem + g.hist_bytes + g.ring_bytes));
-  // The sub-histograms and the uint8 table are made visible by the barrier
-  // after the first ring fill.
-  if (kShared) {
-    for (int i = threadIdx.x; i < g.copies * set_stride; i += kThreads) hist[i] = 0;
-  }
-  int* mine = kShared ? hist + (threadIdx.x % 32 % g.copies) * set_stride : out_b;
+  return make_binner<In, Lv>(lo, span, levels, lut);
+}
 
+// Marches the plane-tiles [f, f_end) of image b (unit-major, then depth)
+// and votes them into `mine`; a span that crosses from one unit to the
+// next starts a new ring.
+template <typename In, typename Lv, int kHist>
+__device__ __forceinline__ void march_span(const In* __restrict__ img, Lv* ring, int* mine,
+                                           int* out_b, const Geometry& g, const Offsets& offs,
+                                           const Binner<Lv>& bn, const unsigned (&code)[kMaxUnits],
+                                           int b, long long f, long long f_end) {
   const int sw = g.runs * kRun;
   const int ahead = g.slots / g.planes - 2;  // steps a vote reads beyond its own
   const int units = g.planes * g.ring_rows * g.unit_row;
-  const long long total = static_cast<long long>(g.strips) * g.row_tiles * g.depth;
-  long long f = static_cast<long long>(part) * g.span;
-  const long long f_end = min(total, f + g.span);
-  unsigned code[kMaxUnits];
-#pragma unroll
-  for (int t = 0; t < kMaxUnits; ++t) code[t] = unit_code(g, threadIdx.x + t * kThreads);
-
   while (f < f_end) {
     const long long unit = f / g.depth;
     const int za = static_cast<int>(f - unit * g.depth);
@@ -437,18 +514,88 @@ march_kernel(const In* __restrict__ img, const float* __restrict__ quant, int* _
           store<In, Lv>(ring, v, fetch(img, v), bn);
         }
       }
-      if (j > ahead) vote<Lv>(ring, mine, g, offs, j - ahead - 1, za, zb, y0);
+      if (j > ahead) vote<Lv, kHist>(ring, mine, out_b, g, offs, j - ahead - 1, za, zb, y0);
       if (j >= ahead) __syncthreads();
     }
     f += zb - za;
   }
+}
 
-  if (kShared) {
-    __syncthreads();
-    for (int c = threadIdx.x; c < offs.n * cells; c += kThreads) {
-      int v = 0;
-      for (int r = 0; r < g.copies; ++r) v += hist[r * set_stride + c];
-      if (v) atomicAdd(out_b + c, v);
+template <typename In, typename Lv, int kHist>
+__global__ void __launch_bounds__(kThreads, 3)
+march_kernel(const In* __restrict__ img, const float* __restrict__ quant, int* __restrict__ out,
+             const Geometry g, const Offsets offs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* hist = reinterpret_cast<int*>(smem);
+  Lv* ring = reinterpret_cast<Lv*>(smem + g.hist_bytes);
+  Lv* lut = reinterpret_cast<Lv*>(smem + g.hist_bytes + g.ring_bytes);
+  const int cells = g.levels * g.levels;
+  const long long total = static_cast<long long>(g.strips) * g.row_tiles * g.depth;
+  unsigned code[kMaxUnits];
+#pragma unroll
+  for (int t = 0; t < kMaxUnits; ++t) code[t] = unit_code(g, threadIdx.x + t * kThreads);
+
+  if constexpr (kHist == kCluster) {
+    // The cluster marches the plane-tiles [w, w_end) of the flattened
+    // (image, plane-tile) sequence; each image's share is cut into one
+    // span a block. The slices are zeroed, and zero again after each
+    // image's flush, before any block votes: the cluster barriers order it.
+    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int band_cells = g.band * g.levels;
+    for (int i = threadIdx.x; i < g.hist_bytes / 4; i += kThreads) hist[i] = 0;
+    cluster.sync();
+    long long w = static_cast<long long>(blockIdx.x / g.cluster) * g.span;
+    const long long w_end = min(total * g.batch, w + g.span);
+    while (w < w_end) {
+      const int b = static_cast<int>(w / total);
+      const long long fa = w - b * total;
+      const long long fb = min(total, fa + (w_end - w));
+      const long long per = (fb - fa + g.cluster - 1) / g.cluster;
+      const long long f = min(fb, fa + rank * per);
+      // The table is rewritten only once every thread has passed the
+      // barrier after the last image's votes.
+      const Binner<Lv> bn = image_binner<In, Lv>(quant, b, g.levels, lut);
+      int* out_b = out + static_cast<long long>(b) * offs.n * cells;
+      march_span<In, Lv, kHist>(img, ring, hist, out_b, g, offs, bn, code, b, f,
+                                min(fb, f + per));
+      cluster.sync();  // every vote on image b is in
+      for (int c = threadIdx.x; c < g.held * band_cells; c += kThreads) {
+        const int v = hist[c];
+        if (!v) continue;
+        hist[c] = 0;
+        const int k = c / band_cells;
+        const int row = (c - k * band_cells) / g.levels;
+        const int a = c - k * band_cells - row * g.levels;
+        const int r = (row << g.cluster_shift) + rank;  // < L: only a vote wrote v
+        atomicAdd(out_b + k * cells + r * g.levels + a, v);
+      }
+      cluster.sync();  // no block votes into a slice before it is zero again
+      w += fb - fa;
+    }
+  } else {
+    const int set_stride = offs.n * cells + 1;
+    const int b = blockIdx.x / g.per_image;
+    const int part = blockIdx.x - b * g.per_image;
+    int* out_b = out + static_cast<long long>(b) * offs.n * cells;
+    const Binner<Lv> bn = image_binner<In, Lv>(quant, b, g.levels, lut);
+    // The sub-histograms and the uint8 table are made visible by the
+    // barrier after the first ring fill.
+    if constexpr (kHist == kShared) {
+      for (int i = threadIdx.x; i < g.copies * set_stride; i += kThreads) hist[i] = 0;
+    }
+    int* mine = kHist == kShared ? hist + (threadIdx.x % 32 % g.copies) * set_stride : out_b;
+    const long long f = static_cast<long long>(part) * g.span;
+    march_span<In, Lv, kHist>(img, ring, mine, out_b, g, offs, bn, code, b, f,
+                              min(total, f + g.span));
+
+    if constexpr (kHist == kShared) {
+      __syncthreads();
+      for (int c = threadIdx.x; c < offs.n * cells; c += kThreads) {
+        int v = 0;
+        for (int r = 0; r < g.copies; ++r) v += hist[r * set_stride + c];
+        if (v) atomicAdd(out_b + c, v);
+      }
     }
   }
 }
@@ -460,7 +607,10 @@ march_kernel(const In* __restrict__ img, const float* __restrict__ quant, int* _
 // Chooses the ring for `g` (whose batch, dims, levels and copies are set):
 // the widest strip and the most rows and planes per step (about one run per
 // thread) whose load units a thread issues at once, shrunk until the ring
-// fits in `max_smem` bytes; then the sub-histogram sets that fit beside it.
+// fits in `max_smem` bytes; then where the votes go: the sub-histogram sets
+// that fit beside it, else the smallest cluster whose slices of half the
+// offsets' counts fit beside it (launch() falls back to global atomics
+// where the card will not run that cluster), else global atomics.
 // Returns false when no ring fits (a halo too large for shared memory).
 inline bool plan(Geometry& g, const Offsets& o, int max_smem) {
   const int lv_size = g.levels > 255 ? 2 : 1;
@@ -519,53 +669,137 @@ inline bool plan(Geometry& g, const Offsets& o, int max_smem) {
   g.shared_hist = fit >= 1;
   g.copies = g.shared_hist ? static_cast<int>(std::min(static_cast<long long>(g.copies), fit)) : 1;
   g.hist_bytes = g.shared_hist ? static_cast<int>((g.copies * set_bytes + 15) / 16 * 16) : 0;
+  g.cluster = g.cluster_shift = g.band = g.held = 0;
+  // A cluster holds the counts of half the offsets; the other half vote
+  // with global atomics. A remote shared add and an L2 atomic go at about
+  // the same rate on the H100 (PERF.md), and they take separate paths, so
+  // the two halves run side by side.
+  const int held = (o.n + 1) / 2;
+  for (int shift = 1; !g.shared_hist && (1 << shift) <= kMaxCluster; ++shift) {
+    const int band = ceil_div(g.levels, 1 << shift);  // reference rows a block holds
+    const long long slice = (static_cast<long long>(held) * band * g.levels * 4 + 15) / 16 * 16;
+    if (slice + g.ring_bytes + kLutBytes <= max_smem) {
+      g.cluster = 1 << shift;
+      g.cluster_shift = shift;
+      g.band = band;
+      g.held = held;
+      g.hist_bytes = static_cast<int>(slice);
+      break;
+    }
+  }
   g.smem = g.hist_bytes + g.ring_bytes + kLutBytes;
   return true;
 }
 
+// The global-atomic variant of a planned geometry.
+inline void without_cluster(Geometry& g) {
+  g.cluster = g.cluster_shift = g.band = g.held = 0;
+  g.hist_bytes = 0;
+  g.smem = g.ring_bytes + kLutBytes;
+}
+
+// Returned by launch<..., kCluster> when the card cannot run the cluster.
+constexpr int kNoCluster = -1;
+
 // What a launch would be, for reports: filled by run() when `info` is given.
 enum Info : int {
   kBlocksPerSm, kSmem, kSharedHist, kCopies, kRuns, kTileRows, kPlanes, kSlots, kGrid, kSpan,
-  kRegisters, kLocalBytes, kInfoLen
+  kRegisters, kLocalBytes, kClusterSize, kInfoLen
 };
 
-template <typename In, typename Lv, bool kShared>
+// A launch of kThreads-thread blocks in clusters of `cluster` along x.
+inline cudaLaunchConfig_t launch_config(cudaLaunchAttribute* dims, int cluster, int smem,
+                                        cudaStream_t s) {
+  dims->id = cudaLaunchAttributeClusterDimension;
+  dims->val.clusterDim.x = static_cast<unsigned>(cluster);
+  dims->val.clusterDim.y = 1;
+  dims->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = s;
+  cfg.attrs = dims;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename In, typename Lv, int kHist>
 int launch(const In* img, const float* quant, int* out, Geometry g, const Offsets& o, int split,
            cudaStream_t s, int* info) {
-  auto kernel = march_kernel<In, Lv, kShared>;
+  auto kernel = march_kernel<In, Lv, kHist>;
   const cudaError_t e = allow_smem(kernel, static_cast<size_t>(g.smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   int per_sm = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, g.smem);
   if (per_sm < 1) per_sm = 1;
-  const int sms = device_attr(cudaDevAttrMultiProcessorCount);
+  // Blocks resident at once, and the unit blocks come in (a cluster).
+  long long slots = static_cast<long long>(per_sm) * device_attr(cudaDevAttrMultiProcessorCount);
+  const long long unit = kHist == kCluster ? g.cluster : 1;
+  cudaLaunchAttribute dims;
+  cudaLaunchConfig_t cfg = launch_config(&dims, static_cast<int>(unit), g.smem, s);
+  if constexpr (kHist == kCluster) {
+    int clusters = 0;
+    if (g.cluster > 8 &&
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) !=
+            cudaSuccess) {
+      cudaGetLastError();
+      return kNoCluster;
+    }
+    cfg.gridDim = dim3(g.cluster);
+    if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess || clusters < 1) {
+      cudaGetLastError();
+      return kNoCluster;
+    }
+    slots = static_cast<long long>(clusters) * g.cluster;
+  }
   const long long total = static_cast<long long>(g.strips) * g.row_tiles * g.depth;
   // At most one block per resident slot: a second wave would double the time.
-  const long long want = std::max(1LL, static_cast<long long>(per_sm) * sms / g.batch);
-  g.span = std::max(static_cast<long long>(split), ceil_div(total, want));
-  const long long per_image = ceil_div(total, g.span);
-  if (per_image * g.batch > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  g.per_image = static_cast<int>(per_image);
+  long long grid = 0;
+  if constexpr (kHist == kCluster) {
+    // Each resident cluster takes an equal share of all images' plane-tiles.
+    const long long work = total * g.batch;
+    g.span = std::max(static_cast<long long>(split) * g.cluster, ceil_div(work, slots / unit));
+    grid = ceil_div(work, g.span) * unit;
+    g.per_image = 0;
+  } else {
+    const long long want = std::max(1LL, slots / g.batch);
+    g.span = std::max(static_cast<long long>(split), ceil_div(total, want));
+    const long long per_image = ceil_div(total, g.span);
+    grid = per_image * g.batch;
+    g.per_image = static_cast<int>(per_image);
+  }
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (info != nullptr) {
-    cudaFuncAttributes attr;
-    cudaFuncGetAttributes(&attr, kernel);
+    cudaFuncAttributes fa;
+    cudaFuncGetAttributes(&fa, kernel);
     const int values[kInfoLen] = {per_sm, g.smem, g.shared_hist, g.copies, g.runs, g.tile_rows,
-                                  g.planes, g.slots, g.per_image * g.batch,
-                                  static_cast<int>(g.span), attr.numRegs,
-                                  static_cast<int>(attr.localSizeBytes)};
+                                  g.planes, g.slots, static_cast<int>(grid),
+                                  static_cast<int>(ceil_div(g.span, unit)), fa.numRegs,
+                                  static_cast<int>(fa.localSizeBytes), g.cluster};
     for (int i = 0; i < kInfoLen; ++i) info[i] = values[i];
     return static_cast<int>(cudaGetLastError());
   }
-  kernel<<<g.per_image * g.batch, kThreads, g.smem, s>>>(img, quant, out, g, o);
-  return static_cast<int>(cudaGetLastError());
+  const unsigned blocks = static_cast<unsigned>(grid);
+  if constexpr (kHist == kCluster) {
+    cfg.gridDim = dim3(blocks);
+    return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, img, quant, out, g, o));
+  } else {
+    kernel<<<blocks, kThreads, g.smem, s>>>(img, quant, out, g, o);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename In, typename Lv>
-int launch_lv(const void* img, const float* quant, int* out, const Geometry& g, const Offsets& o,
+int launch_lv(const void* img, const float* quant, int* out, Geometry g, const Offsets& o,
               int split, cudaStream_t s, int* info) {
   const In* x = static_cast<const In*>(img);
-  return g.shared_hist ? launch<In, Lv, true>(x, quant, out, g, o, split, s, info)
-                       : launch<In, Lv, false>(x, quant, out, g, o, split, s, info);
+  if (g.shared_hist) return launch<In, Lv, kShared>(x, quant, out, g, o, split, s, info);
+  if (g.cluster) {
+    const int e = launch<In, Lv, kCluster>(x, quant, out, g, o, split, s, info);
+    if (e != kNoCluster) return e;
+    without_cluster(g);
+  }
+  return launch<In, Lv, kGlobal>(x, quant, out, g, o, split, s, info);
 }
 
 template <typename In>

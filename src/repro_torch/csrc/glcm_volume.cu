@@ -30,10 +30,13 @@
 // the current one votes, with one barrier per plane. A thread votes a run of
 // 16 consecutive voxels from aligned shared loads, one shared atomic per
 // vote. At L = 32 a set of 13 sub-histograms is 52 KiB and the ring ~16
-// KiB, so three blocks fit on an SM; at L = 64 one set (208 KiB) still fits
-// beside the ring; at L >= 128 none does and the kernel votes with global
-// atomics. slab_d only bounds how finely the depth is split between blocks:
-// it never changes the counts.
+// KiB, so three blocks fit on an SM; at L = 64 one set (208 KiB) fits
+// beside a small ring; where none does, a cluster of blocks holds the
+// counts of half the directions across its shared memory (L = 128: 7 of
+// them, 448 KiB over 4 blocks) and the rest vote with global atomics; past
+// what a cluster holds the kernel votes with global atomics alone. slab_d only bounds
+// how finely the depth is split between blocks: it never changes the
+// counts.
 
 #include <cuda_runtime.h>
 
@@ -88,9 +91,10 @@ int glcm_volume_launch(const void* img, int kind, const float* quant, int* out, 
 }
 
 // The launch glcm_volume_launch would make for these arguments, without
-// launching: info[0..11] = blocks per SM, shared bytes, shared
+// launching: info[0..12] = blocks per SM, shared bytes, shared
 // sub-histograms (1/0), copies, runs per row, rows per tile, planes per
-// step, ring slots, grid blocks, planes per block, registers, local bytes.
+// step, ring slots, grid blocks, planes per block, registers, local bytes,
+// blocks a cluster (0: no cluster).
 int glcm_volume_plan(int kind, int batch, int depth, int height, int width, int levels,
                      int copies, int slab_d, const int* dz, const int* dy, const int* dx,
                      int n_off, int* info) {

@@ -269,15 +269,18 @@ def launch_plan(kernel: str, shape: tuple[int, ...], offsets, *, levels: int,
     ``shape`` on the current card, without launching. ``glcm_fused``: shape
     (B, H, W), ``split`` = tile_h; ``glcm_volume``: shape (B, D, H, W),
     ``split`` = slab_d — blocks per SM, shared bytes, the ring's geometry,
-    the grid, registers. ``glcm_window``: shape (B, H, W) with
-    ``region_shape`` and ``stride``, or a (B, gh, gw, rh, rw) patch grid —
-    the path (staged, or direct into shared sets or with global atomics),
-    blocks per SM, shared bytes, copies, windows per run, grid, registers.
+    the grid, registers, and ``cluster``: the blocks of a cluster that hold
+    half the offsets' counts in their shared memory (0 where the votes go
+    to per-block sets, ``shared_hist`` 1, or to global atomics).
+    ``glcm_window``: shape (B, H, W) with ``region_shape`` and ``stride``,
+    or a (B, gh, gw, rh, rw) patch grid — the path (staged, or direct into
+    shared sets or with global atomics), blocks per SM, shared bytes,
+    copies, windows per run, grid, registers.
     Needs the card and builds the kernel."""
     n_off = len(offsets)
     cols = list(zip(*offsets))
     arrays = [(ctypes.c_int * n_off)(*c) for c in cols]
-    info = (ctypes.c_int * 12)()
+    info = (ctypes.c_int * 13)()
     if kernel == "glcm_window":
         windows, _ = _windows(torch.empty(shape, device="meta"), region_shape, stride)
         argtypes = [_I] * 6 + [_LL] * 4 + [_I, _I]
@@ -289,7 +292,7 @@ def launch_plan(kernel: str, shape: tuple[int, ...], offsets, *, levels: int,
         args = (kind, *shape, levels, copies, split)
         keys = ("blocks_per_sm", "smem_bytes", "shared_hist", "copies", "runs", "tile_rows",
                 "planes_per_step", "ring_slots", "grid", "planes_per_block", "registers",
-                "local_bytes")
+                "local_bytes", "cluster")
     build.call(kernel, f"{kernel}_plan", argtypes + [_P] * len(cols) + [_I, _P],
                *args, *(ctypes.addressof(a) for a in arrays), n_off, ctypes.addressof(info))
     plan = dict(zip(keys, info))

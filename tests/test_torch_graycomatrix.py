@@ -133,34 +133,48 @@ def test_eigvalsh_chunks_counts_the_plain_versions_calls():
 
 
 def test_the_fused_kernels_route_is_its_launch_plans(monkeypatch):
-    """``cuda_fused`` reads its launch plan's ``shared_hist`` and ``copies``
-    (a card gives them; here a stand-in does) for whole images; a texture
-    map (the window kernel) and the other backends record no route."""
+    """``cuda_fused`` reads its launch plan's ``shared_hist``, ``copies``
+    and ``cluster`` (a card gives them; here stand-ins do) for whole images:
+    per-block shared sets, a cluster's shared memory, or global atomics; a
+    texture map (the window kernel) and the other backends record
+    no route."""
     seen = []
+    plans = [({"shared_hist": 1, "copies": 4, "cluster": 0},
+              {"hist": "shared", "copies": 4, "cluster": 0}),
+             ({"shared_hist": 0, "copies": 1, "cluster": 8},
+              {"hist": "cluster", "copies": 1, "cluster": 8}),
+             ({"shared_hist": 0, "copies": 1, "cluster": 0},
+              {"hist": "global", "copies": 1, "cluster": 0})]
+    stand_in = {}
 
     def fake(kernel, shape, offsets, **kw):
         seen.append((kernel, shape, tuple(offsets), kw))
-        return {"shared_hist": 0, "copies": 1}
+        return stand_in
 
     monkeypatch.setattr(backends, "launch_plan", fake)
     fused = backends.get_backend("cuda_fused")
     spec = GLCMSpec(levels=L, pairs=PAIRS, quantize="uniform", scheme="cuda_fused")
-    assert fused.route((8, 4096, 4096), spec, 2) == {"hist": "global", "copies": 1}
+    for plan, route in plans:
+        stand_in.clear()
+        stand_in.update(plan)
+        assert fused.route((8, 4096, 4096), spec, 2) == route
     assert seen == [("glcm_fused", (8, 4096, 4096), spec.offsets(),
-                     dict(levels=L, split=8, copies=1, kind=2))]
+                     dict(levels=L, split=8, copies=1, kind=2))] * len(plans)
     win = spec.replace(region="window", region_shape=32, region_stride=16)
-    assert fused.route((1, 256, 256), win, 2) == {} and len(seen) == 1
+    assert fused.route((1, 256, 256), win, 2) == {} and len(seen) == len(plans)
     assert all(backends.get_backend(n).route is None
                for n in backends.available_backends() if n != "cuda_fused")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("levels,pairs,hist", [(256, PAIRS, "global"),
+@pytest.mark.parametrize("levels,pairs,hist", [(256, PAIRS, "cluster"),
                                                (32, ((1, 0), (1, 45), (4, 0), (4, 45)), "shared")])
 def test_route_and_solver_on_card(tracer, levels, pairs, hist):
-    """On the card: the L = 256 count votes with global atomics and the
-    paper's L = 32 into shared sets; f14 takes a kernel at both widths, no
-    eigvalsh call; the features are the reference's."""
+    """On the card: the L = 256 count (1 MB of counts: no block holds
+    them) votes half the offsets into a cluster's shared memory and the
+    rest with global atomics, and the paper's L = 32 into per-block shared
+    sets; f14 takes a kernel at both widths, no eigvalsh call; the features
+    are the reference's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     x = data.images(8, 1024, 11, "cuda")
@@ -169,6 +183,7 @@ def test_route_and_solver_on_card(tracer, levels, pairs, hist):
     count = [s for s in tracer.spans() if s.name == "plan.count"]
     eig = [s for s in tracer.spans() if s.name == "haralick.eigvalsh"]
     assert count[-1].attrs["hist"] == hist and count[-1].attrs["copies"] >= 1
+    assert (count[-1].attrs["cluster"] >= 2) == (hist == "cluster")
     assert eig[-1].attrs == {"matrices": 8 * len(pairs), "solver": "kernel", "chunks": 0}
     want = torch.stack([expected_features(img, cfg) for img in x]).cpu().numpy()
     scale = np.maximum(np.abs(want).reshape(-1, 14).max(axis=0), np.finfo(np.float64).tiny)

@@ -26,10 +26,13 @@ from repro_torch.core.spec import GLCMSpec
 from repro_torch.data.images import random_texture, smooth_texture
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.glcm_kernel import (
+    KIND_BYTE,
+    KIND_FLOAT,
     glcm_fused,
     glcm_fused_plain,
     glcm_vote,
     glcm_vote_plain,
+    launch_plan,
 )
 from repro_torch.kernels import mcc_kernel
 from repro_torch.kernels.mcc_kernel import second_eigenvalue, second_eigenvalue_plain
@@ -354,7 +357,7 @@ def test_build_without_nvcc_raises(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("levels", [8, 32, 256])
+@pytest.mark.parametrize("levels", [8, 32, 128, 255, 256])
 def test_kernels_equal_plain_on_card(levels):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
@@ -409,6 +412,76 @@ def test_fused_march_edges_on_card(levels):
         got = glcm_fused(odd, levels=levels, offsets=offsets, quant=(0.0, 255.0))
         assert torch.equal(got, glcm_fused_plain(odd, levels, offsets, quant=(0.0, 255.0)))
     assert glcm_fused.launches == before + 10
+
+
+SKIMAGE_OFFSETS = ((0, 1), (1, -1), (1, 0), (1, 1))  # graycomatrix's 0, 45, 90, 135 at d = 1
+MANY_OFFSETS = tuple((d * dy, d * dx) for d in range(1, 9) for dy, dx in SKIMAGE_OFFSETS)  # 32
+
+
+def _textures(b, h, w, seed):
+    """(b, h, w) uint8: smooth and random textures in turn."""
+    make = (smooth_texture, random_texture)
+    return np.stack([make[i % 2](max(h, w), seed=seed + i)[:h, :w] for i in range(b)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels,offsets", [
+    (128, SKIMAGE_OFFSETS), (128, PAPER_OFFSETS), (255, SKIMAGE_OFFSETS),
+    (255, PAPER_OFFSETS), (256, SKIMAGE_OFFSETS), (256, PAPER_OFFSETS), (256, MANY_OFFSETS)])
+def test_fused_cluster_equals_plain_on_card(levels, offsets):
+    """Where one set of counts (n_off L² int32) outgrows a block's shared
+    memory, a cluster of blocks holds half the offsets' counts and the rest
+    vote with global atomics (32 offsets at L = 256: half of them, 4 MB, fit
+    no cluster, so all vote with global atomics): bit for bit the plain
+    version's on smooth and random images as uint8, float32 and int32
+    levels, in batches of 1 and 9, at a height (1027) that no cluster size
+    divides, so a cluster's share of an image leaves its blocks unequal
+    spans and, at 9 images, crosses from one image to the next."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(levels + len(offsets))
+    h, w = 1027, 777
+    for b in (1, 9):
+        plan = launch_plan("glcm_fused", (b, h, w), offsets, levels=levels,
+                           split=ops.default_tile_h(offsets), kind=KIND_BYTE)
+        assert plan["shared_hist"] == 0 and plan["copies"] == 1
+        if len(offsets) == 32:
+            assert plan["cluster"] == 0
+        else:
+            assert plan["cluster"] in (2, 4, 8, 16) and plan["grid"] % plan["cluster"] == 0
+    u8 = torch.from_numpy(_textures(9, h, w, seed=levels)).to(dev)
+    ints = rng.integers(-2, levels + 2, size=(9, h, w)).astype(np.int32)
+    ints[..., 0], ints[..., -1] = -1, levels  # levels outside [0, L) on the ring's edges
+    before = glcm_fused.launches
+    for b in (1, 9):
+        x = u8[:b]
+        quant = uniform_params(x, batched=True)
+        for img, q in ((x, quant), (x.float(), quant), (torch.from_numpy(ints[:b]).to(dev), None)):
+            got = glcm_fused(img, levels=levels, offsets=offsets, quant=q)
+            assert torch.equal(got, glcm_fused_plain(img, levels, offsets, quant=q))
+    assert glcm_fused.launches == before + 6
+
+
+# The parent's launch of the resident cells' count (8 x 4096² at L = 32, the
+# paper's four offsets), read on an NVIDIA H100 80GB HBM3 before the cluster
+# route was added.
+L32_GEOMETRY = dict(blocks_per_sm=3, smem_bytes=41696, shared_hist=1, copies=1, runs=256,
+                    tile_rows=1, grid=392)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [KIND_BYTE, KIND_FLOAT])
+def test_fused_shared_geometry_is_the_parents_on_card(kind):
+    """Where one set fits a block, the count keeps its per-block shared
+    sets and the geometry it had before clusters: the four cells that run
+    the paper's L = 32 must not move."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    plan = launch_plan("glcm_fused", (8, 4096, 4096), PAPER_OFFSETS, levels=32,
+                       split=ops.default_tile_h(PAPER_OFFSETS), kind=kind)
+    assert {k: plan[k] for k in L32_GEOMETRY} == L32_GEOMETRY
+    assert plan["cluster"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ from repro_torch.core.quantize import uniform_params
 from repro_torch.core.spec import GLCMSpec
 from repro_torch.data import images as timages
 from repro_torch.kernels import ops
-from repro_torch.kernels.glcm_kernel import glcm_volume, glcm_volume_plain
+from repro_torch.kernels.glcm_kernel import glcm_volume, glcm_volume_plain, launch_plan
 from repro_torch.kernels.ref import DIRECTIONS_3D
 
 try:  # the reference needs JAX, which a machine with a card may not have
@@ -414,6 +414,33 @@ def test_volume_kernel_equals_plain_on_card(levels):
             got = glcm_volume(raw, levels=levels, offsets=offsets, slab_d=slab_d, quant=quant)
             assert torch.equal(got, glcm_volume_plain(raw, levels, offsets, quant=quant))
     assert glcm_volume.launches == before + 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [64, 128])
+def test_volume_cluster_equals_plain_on_card(levels):
+    """Over the 13 directions a set outgrows one block where the ring is
+    large (L = 64: 208 KiB beside the ring of a 23 x 29 plane) or always
+    (L = 128: 832 KiB): a cluster of blocks holds the counts of 7 of them
+    and the rest vote with global atomics, bit for bit the plain version's
+    as int32 levels, float32 and uint8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(levels)
+    shape = (2, 19, 23, 29)
+    plan = launch_plan("glcm_volume", shape, DIRECTIONS_3D, levels=levels, split=8, kind=0)
+    assert plan["shared_hist"] == 0 and plan["cluster"] in (2, 4, 8, 16)
+    ints = rng.integers(-2, levels + 2, size=shape).astype(np.int32)
+    u8 = rng.integers(0, 256, size=shape).astype(np.uint8)
+    before = glcm_volume.launches
+    for x in (torch.from_numpy(ints).to(dev), torch.from_numpy(u8).to(dev)):
+        quant = None if x.dtype == torch.int32 else uniform_params(x, batched=True)
+        xs = (x,) if quant is None else (x, x.float())
+        for v in xs:
+            got = glcm_volume(v, levels=levels, offsets=DIRECTIONS_3D, quant=quant)
+            assert torch.equal(got, glcm_volume_plain(v, levels, DIRECTIONS_3D, quant=quant))
+    assert glcm_volume.launches == before + 3
 
 
 @pytest.mark.cuda
